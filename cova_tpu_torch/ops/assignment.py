@@ -1,0 +1,111 @@
+"""Rectangular min-cost assignment with an overflow option, batched over
+a leading lane axis (PyTorch port of
+cova_tpu/ops/assignment.py::solve_assignment_overflow).
+
+The auction algorithm (Bertsekas): every unassigned row bids for its best
+column in parallel each round; each column goes to its highest bidder
+(first index on ties, as jnp.argmax and torch.argmax both resolve them).
+JAX runs it as a vmapped while_loop, in which each lane stops on its own
+condition; here the lanes share one Python loop and a lane is frozen once
+its own condition is false, so every lane's result equals a solo run.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_NEG = -1e9
+# Lanes' stopping conditions are pulled to the host once every this many
+# rounds; frozen lanes do not change, so the result does not depend on it.
+_CHECK_EVERY = 8
+
+
+def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+    """dst.at[lane, idx].set(src, mode="drop") along dim 1: entries whose
+    index is out of range (== dst.shape[1]) are dropped."""
+    n = dst.shape[1]
+    ext = torch.cat([dst, dst[:, :1]], dim=1)
+    src = torch.as_tensor(src, dtype=dst.dtype, device=dst.device).expand(idx.shape)
+    ext.scatter_(1, idx.long(), src)
+    return ext[:, :n]
+
+
+def solve_assignment_overflow(
+    cost: torch.Tensor,  # (L, MT, MD) real-pair costs
+    row_mask: torch.Tensor,  # (L, MT) bool — rows that must be assigned
+    col_mask: torch.Tensor,  # (L, MD) bool — columns that exist
+    overflow_cost: float,
+    eps: float = 1e-2,
+    max_iters: int = 2048,
+) -> torch.Tensor:
+    """Match each masked row to a distinct masked column (paying
+    cost[l, i, j]) or to overflow (paying `overflow_cost`, unlimited
+    capacity), minimizing the total per lane. Exact whenever distinct
+    total-cost gaps exceed (assigned rows) * eps. Rows still unassigned at
+    `max_iters` fall to overflow.
+
+    Returns (L, MT) int64: the matched column, or -1 for overflow and
+    masked-out rows."""
+    nl, mt, md = cost.shape
+    dev = cost.device
+    profit = torch.where(
+        row_mask[:, :, None] & col_mask[:, None, :],
+        -cost.to(torch.float32),
+        torch.tensor(_NEG, dtype=torch.float32, device=dev),
+    )
+    ovf_v = -float(overflow_cost)
+    ovf_col = md  # sentinel: parked on overflow
+    r2c = torch.where(
+        row_mask, torch.tensor(-1, device=dev), torch.tensor(ovf_col, device=dev)
+    ).long()
+    c2r = torch.full((nl, md), -1, dtype=torch.long, device=dev)
+    prices = torch.zeros((nl, md), dtype=torch.float32, device=dev)
+    cols = torch.arange(md, device=dev)
+
+    # Round k runs for the lanes still live; none runs more than
+    # max_iters rounds, as in JAX's per-lane while_loop bound.
+    for k in range(max_iters):
+        live = (r2c < 0).any(dim=1)  # (L,)
+        if k % _CHECK_EVERY == 0 and not bool(live.any()):
+            break
+        unassigned = r2c < 0
+        value = profit - prices[:, None, :]  # (L, MT, MD)
+        best_v = value.max(dim=2).values
+        best_j = value.argmax(dim=2)  # first index on ties
+        masked = value.clone()
+        masked.scatter_(2, best_j[..., None], _NEG)
+        # Overflow is always available, so it caps the second-best.
+        second_v = torch.clamp(masked.max(dim=2).values, min=ovf_v)
+
+        # Rows for which overflow beats every remaining real column exit
+        # permanently (prices only rise).
+        exit_ovf = unassigned & (best_v <= ovf_v)
+        n_r2c = torch.where(exit_ovf, ovf_col, r2c)
+        bidder = unassigned & ~exit_ovf
+
+        bid = torch.gather(prices, 1, best_j) + (best_v - second_v) + eps
+        bid_matrix = torch.where(
+            bidder[:, :, None] & (cols[None, None, :] == best_j[:, :, None]),
+            bid[:, :, None],
+            torch.tensor(_NEG, dtype=torch.float32, device=dev),
+        )
+        col_best = bid_matrix.max(dim=1).values  # (L, MD)
+        col_winner = bid_matrix.argmax(dim=1)
+        has_bid = col_best > _NEG / 2
+
+        lost = _scatter_drop(
+            torch.zeros((nl, mt), dtype=torch.bool, device=dev),
+            torch.where(has_bid & (c2r >= 0), c2r, mt),
+            True,
+        )
+        n_r2c = torch.where(lost, -1, n_r2c)
+        n_r2c = _scatter_drop(
+            n_r2c, torch.where(has_bid, col_winner, mt), cols.expand(nl, md)
+        )
+        n_c2r = torch.where(has_bid, col_winner, c2r)
+        n_prices = torch.where(has_bid, col_best, prices)
+
+        r2c = torch.where(live[:, None], n_r2c, r2c)
+        c2r = torch.where(live[:, None], n_c2r, c2r)
+        prices = torch.where(live[:, None], n_prices, prices)
+    return torch.where((r2c >= 0) & (r2c < md), r2c, -1)

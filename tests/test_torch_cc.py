@@ -1,0 +1,127 @@
+"""Connected components in the PyTorch port against the JAX package.
+
+On the CPU the wrapper runs its plain version, which must give the TPU
+kernel's labels exactly (the Pallas kernel runs in interpret mode here);
+`mask_to_boxes` must give the JAX op's boxes exactly. The CUDA kernel
+itself is held against the plain version by the tests marked `cuda`,
+which skip without a card (run them there with
+`python -m pytest tests/test_torch_cc.py -m cuda`)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cova_tpu.ops.cc import mask_to_boxes as jax_mask_to_boxes
+from cova_tpu.ops.pallas.cc_kernel import connected_components_pallas
+from cova_tpu_torch.ops.cc import mask_to_boxes
+from cova_tpu_torch.ops.cuda.cc_kernel import (
+    connected_components,
+    connected_components_plain,
+)
+
+# The suite runs one test worker per core: keep torch to one thread each.
+torch.set_num_threads(1)
+
+
+def _spiral(h=45, w=80):
+    mask = np.zeros((h, w), bool)
+    mask[0, :] = True
+    mask[:, w - 1] = True
+    mask[h - 1, 2:] = True
+    mask[4:h, 2] = True
+    mask[4, 2 : w - 10] = True
+    return mask
+
+
+def _random(shape, p, seed):
+    return np.random.default_rng(seed).uniform(size=shape) < p
+
+
+CASES = {
+    "random_45x80_p0.05": lambda: _random((4, 45, 80), 0.05, 0),
+    "random_45x80_p0.3": lambda: _random((4, 45, 80), 0.3, 1),
+    "random_46x80_p0.6": lambda: _random((2, 46, 80), 0.6, 2),
+    "random_68x120_p0.3": lambda: _random((2, 68, 120), 0.3, 3),
+    "spiral": lambda: _spiral()[None],
+    "empty_and_full": lambda: np.stack([np.zeros((45, 80), bool), np.ones((45, 80), bool)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_labels_match_pallas(case):
+    masks = CASES[case]()
+    ref = np.asarray(connected_components_pallas(jnp.asarray(masks), interpret=True))
+    before = connected_components.launches
+    got = connected_components(torch.from_numpy(masks))
+    assert connected_components.launches == before  # the CPU runs no kernel
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_spiral_is_one_component_rooted_at_raster_first_pixel():
+    mask = _spiral()
+    lab = connected_components_plain(torch.from_numpy(mask[None]))[0].numpy()
+    assert set(np.unique(lab[mask]).tolist()) == {0}
+    assert (lab[~mask] == mask.size).all()
+
+
+@pytest.mark.parametrize("area_threshold", [1, 3])
+@pytest.mark.parametrize("p", [0.05, 0.2])
+def test_mask_to_boxes_matches_jax(area_threshold, p):
+    masks = _random((2, 3, 45, 80), p, 11)
+    ref = jax_mask_to_boxes(jnp.asarray(masks), area_threshold, backend="xla")
+    got = mask_to_boxes(torch.from_numpy(masks), area_threshold)
+    assert got.valid.shape == (2, 3, 32)
+    for name in ("ltwh", "valid", "area", "class_id", "conf", "track_id"):
+        np.testing.assert_array_equal(
+            getattr(got, name).numpy(), np.asarray(getattr(ref, name)), err_msg=name
+        )
+    assert int(got.valid.sum()) > 0
+
+
+def test_wrapper_rejects_bad_input():
+    with pytest.raises(ValueError):
+        connected_components(torch.zeros((45, 80), dtype=torch.bool))
+    with pytest.raises(TypeError):
+        connected_components(torch.zeros((1, 45, 80), dtype=torch.float32))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_kernel_matches_plain(cuda_device, case):
+    masks = torch.from_numpy(CASES[case]()).to(cuda_device)
+    before = connected_components.launches
+    got = connected_components(masks)
+    torch.cuda.synchronize()
+    assert connected_components.launches == before + 1
+    assert torch.equal(got, connected_components_plain(masks))
+
+
+@pytest.mark.cuda
+def test_cuda_mask_to_boxes_matches_cpu(cuda_device):
+    masks = torch.from_numpy(_random((8, 128, 45, 80), 0.05, 5))
+    got = mask_to_boxes(masks.to(cuda_device))
+    ref = mask_to_boxes(masks)
+    for name in ("ltwh", "valid", "area"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), name
+
+
+def test_jax_reference_converges_on_these_cases():
+    # The JAX XLA labelling stops after 32 sweeps; these masks converge
+    # well within that, so it is a valid exact reference above.
+    masks = _random((2, 3, 45, 80), 0.2, 11).reshape(-1, 45, 80)
+    from cova_tpu.ops.cc import connected_components as jax_cc
+
+    ref = np.asarray(jax.vmap(lambda m: jax_cc(m, 32))(jnp.asarray(masks)))
+    np.testing.assert_array_equal(
+        connected_components_plain(torch.from_numpy(masks)).numpy(), ref
+    )
