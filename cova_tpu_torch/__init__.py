@@ -5,11 +5,13 @@ A port of the JAX package `cova_tpu`, which stays the reference: module
 paths and names follow it so that each module's counterpart is easy to
 find. This package imports `torch` and never `jax`.
 
-Slice covered: `CovaPipeline` with `host_tracking=False` — entropy
+Covered: `CovaPipeline` in the default host-tracking mode — entropy
 decode (shared C++ codec) -> metapreprocess -> BlobNet -> threshold ->
-connected components (hand-written CUDA kernel, csrc/cc_kernel.cu) ->
-region stats -> SORT (Kalman filter + auction assignment) -> host
-mirror -> frame selector -> aggregator CSVs.
+bit-packed masks -> native CC + SORT on the host -> frame selector ->
+aggregator CSVs — and with `host_tracking=False`, where connected
+components (hand-written CUDA kernel, csrc/cc_kernel.cu), region stats
+and SORT (Kalman filter + auction assignment) run on the device;
+multi-stream ingest on one device; `SortPipeline`.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """The compressed-domain stage on one device (PyTorch port of
-cova_tpu/pipeline/compressed.py, the all-device variant).
+cova_tpu/pipeline/compressed.py).
 
-One chunk of F windows per range goes through:
+One chunk of F windows per range goes through, in the all-device
+variant (`compressed_stage_step`, host_tracking=False):
 
   metadata (R, F+T-1, H, W, C) u8
     -> temporal stack + clip normalize          (gather)
@@ -9,6 +10,11 @@ One chunk of F windows per range goes through:
     -> threshold -> connected components -> boxes (CUDA kernel + torch stats)
     -> SORT                                      (loop over F, batched over R)
     -> packed per-slot outputs (R, F, MT, 30) u8 for the host mirror
+
+and in the default host-tracking variant (`compressed_masks_step`)
+through BlobNet and the threshold only, the masks leaving the device
+bit-packed for connected components + SORT in native host code
+(tracker/host.py).
 
 R is the number of independent GoP ranges ("virtual streams"), the
 batch-parallel counterpart of the reference's gopsplit fan-out.
@@ -122,6 +128,50 @@ def compressed_stage_step(
         sort_state, boxes, ts0, nwin, cfg.compressed.gamma, cfg.sort
     )
     return new_state, pack_outputs(outputs), masks, boxes
+
+
+def pack_masks(masks: torch.Tensor) -> torch.Tensor:
+    """(..., W) bool masks -> flat u8, 8 pixels a byte along W, MSB first
+    (np.packbits / np.unpackbits order). A byte's terms sum to at most
+    255, so the uint8 sum is exact."""
+    w = masks.shape[-1]
+    if w % 8:
+        raise ValueError(f"mask width {w} is not a multiple of 8")
+    pow2 = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                        device=masks.device)
+    bits = masks.to(torch.uint8).reshape(masks.shape[:-1] + (w // 8, 8))
+    return (bits * pow2).sum(dim=-1, dtype=torch.uint8).reshape(-1)
+
+
+def compressed_masks_step(
+    model: BlobNet, cfg: CovaConfig, metadata: torch.Tensor
+) -> torch.Tensor:
+    """metapreprocess + BlobNet + threshold only (host_tracking mode):
+    (R, F+T-1, H, W, C) u8 metadata -> the masks `probs > mask_threshold`
+    bit-packed by `pack_masks` into a flat u8 tensor of R*F*H*(W/8)
+    bytes on the metadata's device. The host runs connected components
+    + SORT on them natively (tracker/host.py)."""
+    probs = compressed_probs(model, cfg, metadata)
+    return pack_masks(probs > cfg.compressed.mask_threshold)
+
+
+def compressed_probs_step(
+    model: BlobNet, cfg: CovaConfig, metadata: torch.Tensor
+) -> torch.Tensor:
+    """metapreprocess + BlobNet without the threshold: the raw per-window
+    probabilities as a flat float32 tensor of R*F*H*W, for sweeping
+    mask_threshold and the tracker's knobs over one forward pass."""
+    return compressed_probs(model, cfg, metadata).reshape(-1)
+
+
+def unpack_masks(packed_flat, shape):
+    """Host-side inverse of compressed_masks_step's bit-packing:
+    (R, F, H, W) bool masks from the pulled flat buffer."""
+    import numpy as _np
+
+    r, f, h, w = shape
+    buf = _np.asarray(packed_flat).reshape(r * f, h, w // 8)
+    return _np.unpackbits(buf, axis=-1).reshape(r, f, h, w)
 
 
 # Byte layout of one packed track slot (little-endian, 30 bytes):
@@ -258,3 +308,15 @@ class CompressedStage:
             nwin=torch.as_tensor(np.asarray(nwin, np.int32), device=dev),
         )
         return packed, masks, boxes
+
+    def run_chunk_masks(self, metadata):
+        """Masks-only device step (host_tracking mode): metadata
+        (R, F+T-1, H, W, C) u8 (numpy or tensor) -> flat bit-packed u8
+        masks on the device; recover (R, F, H, W) with
+        unpack_masks(pulled, self.masks_shape)."""
+        r, ft, h, w = metadata.shape[:4]
+        f = (ft - self.cfg.video.timestep) // self.cfg.compressed.gamma + 1
+        self.masks_shape = (r, f, h, w)
+        return compressed_masks_step(
+            self.model, self.cfg, torch.as_tensor(metadata, device=self.device)
+        )

@@ -1,20 +1,22 @@
 """End-to-end CoVA pipeline orchestration (PyTorch port of
-cova_tpu/pipeline/cova.py, all-device tracking).
+cova_tpu/pipeline/cova.py).
 
 Wires the codec host layer, the compressed-domain device stage, the
 frame selector, the selective pixel decoder and the in-process
-aggregator into one driver. Data flow per chunk of F windows:
+aggregator into one pipeline. Data flow per chunk of F windows (default
+cfg.compressed.host_tracking=True):
 
-  host   entropy decode (C++)                     -> (R, F+T-1, H, W, 2) u8
-  device metapreprocess+BlobNet+mask+CC+SORT      -> packed (R, F, MT, 30) u8
-  host   HostTracker mirror, FrameSelector schedules decodes
+  host   entropy decode (C++)                 -> (R, F+T-1, H, W, 2) u8
+  device metapreprocess+BlobNet+mask          -> flat bit-packed u8 masks
+  host   native CC + SORT (cctrack.cc), FrameSelector schedules decodes
   host   selective pixel decode (libavcodec), droppable frames discarded
   host   Associator -> track/dnn/assoc/stationary CSVs
 
-Only `host_tracking=False` is ported: the device runs CC + SORT and the
-host mirrors its packed outputs. The `last` config key stops the
-pipeline after a named stage for debugging: one of "entdec", "mask",
-"boxes", "track", "select", "full".
+With host_tracking=False the device also runs CC (the CUDA kernel) and
+SORT, and the host mirrors its packed per-slot outputs.
+
+The `last` config key stops the pipeline after a named stage for
+debugging: one of "entdec", "mask", "boxes", "track", "select", "full".
 """
 
 from __future__ import annotations
@@ -33,8 +35,17 @@ from cova_tpu_torch.aggregator import Associator
 from cova_tpu_torch.codec import Mp4Demuxer, PixelDecoder
 from cova_tpu_torch.config import CovaConfig
 from cova_tpu_torch.models.blobnet import BlobNet, BlobNetConfig
-from cova_tpu_torch.pipeline.compressed import CompressedStage, unpack_outputs_np
+from cova_tpu_torch.pipeline.compressed import (
+    CompressedStage,
+    unpack_masks,
+    unpack_outputs_np,
+)
 from cova_tpu_torch.scheduler import FrameSelector, HostTracker
+from cova_tpu_torch.tracker.host import HostSort, cc_boxes
+
+# Box capacity per frame of the host CC (the device path keeps
+# types.MAX_BOXES_PER_FRAME = 32).
+HOST_MAX_BOXES = 16
 
 
 @dataclasses.dataclass
@@ -73,6 +84,16 @@ class CovaResult:
         return 1.0 - self.decoded_inference / max(self.num_frames, 1)
 
 
+@dataclasses.dataclass
+class _Stream:
+    """Per-input state for multi-stream ingest: N files share one device
+    batch, each with its own trackers, selectors and aggregator."""
+
+    demux: Mp4Demuxer
+    aggregator: Associator
+    detector: Optional[Callable]
+
+
 class _HostCopy:
     """A device tensor on its way into host memory: a non-blocking copy
     into a pinned buffer, with a CUDA event recorded behind it. `numpy()`
@@ -105,23 +126,26 @@ class CovaPipeline:
     device: where the compressed stage runs. On CUDA, constructing the
     pipeline turns TF32 off for cuDNN convolutions and matmuls process
     wide (see pipeline.compressed.exact_float32).
+
+    Multi-stream ingest: `CovaPipeline.multi([(path, out_dir, detector),
+    ...], cfg)` runs N files through one device batch: each stream
+    contributes cfg.parallel.num_ranges ranges (R_total = N * num_ranges)
+    and keeps its own host state (trackers, selectors, aggregator CSVs),
+    so per-stream outputs equal solo runs. All streams must share one MB
+    grid.
     """
 
     def __init__(
         self,
-        input_path: str,
-        output_dir: str,
+        input_path: Optional[str],
+        output_dir: Optional[str],
         cfg: CovaConfig = CovaConfig(),
         variables=None,
         detector: Optional[Callable] = None,
         log=print,
         device="cpu",
+        _streams=None,
     ):
-        if cfg.compressed.host_tracking:
-            raise NotImplementedError(
-                "host_tracking=True is not ported yet (ROADMAP: port slice 2, "
-                "the host-tracking mode); set cfg.compressed.host_tracking=False"
-            )
         if cfg.parallel.num_devices > 1:
             raise NotImplementedError(
                 "num_devices > 1 is not ported (ROADMAP: parallel/mesh)"
@@ -129,9 +153,27 @@ class CovaPipeline:
         self.cfg = cfg
         self.log = log
         self.device = torch.device(device)
-        self.demux = Mp4Demuxer(input_path)
-        self.aggregator = Associator(output_dir, cfg.aggregator)
-        self.detector = detector
+        if _streams is None:
+            _streams = [(input_path, output_dir, detector)]
+        self.streams = [
+            _Stream(
+                demux=Mp4Demuxer(path),
+                aggregator=Associator(out, cfg.aggregator),
+                detector=det,
+            )
+            for path, out, det in _streams
+        ]
+        # Single-stream aliases.
+        self.demux = self.streams[0].demux
+        self.aggregator = self.streams[0].aggregator
+        self.detector = self.streams[0].detector
+        grid = (self.demux.mb_width, self.demux.mb_height)
+        for s in self.streams[1:]:
+            if (s.demux.mb_width, s.demux.mb_height) != grid:
+                raise ValueError(
+                    "multi-stream ingest requires one MB grid across "
+                    "streams (one device batch per shape)"
+                )
 
         in_ch = 4 if cfg.compressed.use_nnz_channel else 3
         model = BlobNet(BlobNetConfig(in_channels=in_ch))
@@ -140,37 +182,47 @@ class CovaPipeline:
         else:
             model.reset_parameters(torch.Generator().manual_seed(0))
 
-        self.num_ranges = cfg.parallel.num_ranges
+        self.num_ranges = cfg.parallel.num_ranges * len(self.streams)
         self.stage = CompressedStage(model, cfg, self.num_ranges, self.device)
         self.num_chunks = 0
 
     @classmethod
-    def multi(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "multi-stream ingest is not ported (ROADMAP: parallel/mesh and .multi)"
-        )
+    def multi(
+        cls,
+        streams,
+        cfg: CovaConfig = CovaConfig(),
+        variables=None,
+        log=print,
+        device="cpu",
+    ) -> "CovaPipeline":
+        """streams: list of (input_path, output_dir, detector)."""
+        return cls(None, None, cfg, variables, None, log, device, _streams=streams)
 
     def _range_bounds(self):
-        """Split the stream's GoPs into num_ranges contiguous ranges, so
-        each range is one coherent timeline. Returns (start, count)
-        sample pairs, num_ranges of them."""
+        """Split each stream's GoPs into num_ranges contiguous ranges, so
+        each range is one coherent timeline. Returns (stream_idx, start,
+        count) triples, num_ranges per stream."""
         r = self.cfg.parallel.num_ranges
-        gops = self.demux.gops()
-        per = max(1, math.ceil(len(gops) / r))
         bounds = []
-        for i in range(0, len(gops), per):
-            chunk = gops[i : i + per]
-            first = chunk[0].first_sample
-            count = sum(g.num_samples for g in chunk)
-            bounds.append((first, count))
-        while len(bounds) < r:
-            bounds.append((self.demux.num_samples, 0))
-        return bounds[:r]
+        for sidx, s in enumerate(self.streams):
+            gops = s.demux.gops()
+            per = max(1, math.ceil(len(gops) / r))
+            sb = []
+            for i in range(0, len(gops), per):
+                chunk = gops[i : i + per]
+                first = chunk[0].first_sample
+                count = sum(g.num_samples for g in chunk)
+                sb.append((sidx, first, count))
+            while len(sb) < r:
+                sb.append((sidx, s.demux.num_samples, 0))
+            bounds.extend(sb[:r])
+        return bounds
 
     def warmup(self) -> None:
-        """Run the device stage once on a zeroed chunk (nwin = 0, so the
-        tracker state is untouched), so a subsequent timed run() measures
-        steady-state work, not kernel builds and cuDNN planning."""
+        """Run the device stage once on a zeroed chunk (for the device
+        SORT with nwin = 0, so the tracker state is untouched), so a
+        subsequent timed run() measures steady-state work, not kernel
+        builds and cuDNN planning."""
         cfg = self.cfg
         nf = cfg.compressed.batch_frames + cfg.video.timestep - 1
         chunk = np.zeros(
@@ -179,10 +231,13 @@ class CovaPipeline:
         )
         if cfg.compressed.signed_mv:
             chunk[..., 1] = 0x88
-        ts0 = np.zeros(self.num_ranges, np.int32)
-        nwin = np.zeros(self.num_ranges, np.int32)
-        pulled, _, _ = self.stage.run_chunk(chunk, ts0, nwin)
-        pulled.cpu()
+        if cfg.compressed.host_tracking:
+            self.stage.run_chunk_masks(chunk).cpu()
+        else:
+            ts0 = np.zeros(self.num_ranges, np.int32)
+            nwin = np.zeros(self.num_ranges, np.int32)
+            pulled, _, _ = self.stage.run_chunk(chunk, ts0, nwin)
+            pulled.cpu()
 
     def run(self, max_frames: Optional[int] = None) -> CovaResult:
         # COVA_PROFILE=<dir> wraps the run in a torch.profiler trace
@@ -205,54 +260,59 @@ class CovaPipeline:
         t = cfg.video.timestep
         f = cfg.compressed.batch_frames
         fps = cfg.video.fps
-        demux = self.demux
         last = cfg.last or "full"
 
         bounds = self._range_bounds()
         if max_frames:
-            bounds = [(s, min(c, max_frames)) for s, c in bounds]
-        # Absolute display rank -> presentation seconds. The aggregator
-        # associates oracle detections with track boxes by EXACT
-        # timestamp equality, and detections carry container pts, so
-        # every timestamp that reaches the aggregator comes from the
+            bounds = [(sx, s, min(c, max_frames)) for sx, s, c in bounds]
+        # Absolute display rank -> presentation seconds, per stream. The
+        # aggregator associates oracle detections with track boxes by
+        # EXACT timestamp equality, and detections carry container pts,
+        # so every timestamp that reaches the aggregator comes from the
         # container clock, not from rank/fps. The selector/tracker keep
         # working in the rank/fps domain internally.
-        all_pts = np.sort(
-            np.array(
-                [demux.sample(i).pts for i in range(demux.num_samples)],
-                dtype=np.int64,
+        pts_sec_s = []
+        for s in self.streams:
+            d = s.demux
+            all_pts = np.sort(
+                np.array(
+                    [d.sample(i).pts for i in range(d.num_samples)],
+                    dtype=np.int64,
+                )
             )
-        )
-        pts_sec = all_pts / float(demux.timescale)
-        if len(pts_sec) == 0:
-            pts_sec = np.zeros(1)
-        # Extrapolate past EOS for empty-range placeholders.
-        pts_sec = np.concatenate(
-            [pts_sec, pts_sec[-1] + np.arange(1, len(bounds) + 2) / fps]
-        )
-        range_starts = [float(pts_sec[s]) for s, _ in bounds]
-        self.aggregator.set_ranges(range_starts)
+            ps = all_pts / float(d.timescale)
+            if len(ps) == 0:
+                ps = np.zeros(1)
+            # Extrapolate past EOS for empty-range placeholders.
+            ps = np.concatenate([ps, ps[-1] + np.arange(1, len(bounds) + 2) / fps])
+            pts_sec_s.append(ps)
+        range_starts = [float(pts_sec_s[sx][s]) for sx, s, _ in bounds]
+        for sidx, s in enumerate(self.streams):
+            s.aggregator.set_ranges(
+                [rs for rs, (sx, _, _) in zip(range_starts, bounds) if sx == sidx]
+            )
         # Display-order sample indices per range (B-frame reordering):
         # the temporal stack must see frames in presentation order, while
         # the frame selector consumes frames in decode order with their
         # display-position pts.
         disp = [
-            demux.display_order(s, c) if c else np.zeros(0, np.int32)
-            for s, c in bounds
+            self.streams[sx].demux.display_order(s, c) if c else np.zeros(0, np.int32)
+            for sx, s, c in bounds
         ]
         # display position (absolute frame rank) per sample index
         pos_of = []
-        for ri, (s_, _) in enumerate(bounds):
+        for ri, (_, s_, _) in enumerate(bounds):
             pos_of.append({int(si): s_ + rel for rel, si in enumerate(disp[ri])})
 
         dead_count = [0]
 
-        def on_dead_factory(range_start, sample_start):
-            # HostTracker works in range-relative frame indices (the
-            # device SORT's ts domain); convert to absolute seconds at
-            # the aggregator boundary. `box` is filled with the tracker
-            # right after construction.
+        def on_dead_factory(range_start, sample_start, stream):
+            # The trackers work in range-relative frame indices; convert
+            # to absolute seconds at the aggregator boundary. `box` is
+            # filled with the tracker right after construction.
             box = {}
+            pts_sec = pts_sec_s[stream]
+            agg = self.streams[stream].aggregator
 
             def cb(rec):
                 dead_count[0] += 1
@@ -271,7 +331,7 @@ class CovaPipeline:
                     end_ts=sec(rec.end_ts),
                     history=[(sec(fi), box_) for fi, box_ in rec.history],
                 )
-                self.aggregator.submit_track(range_start, oldest_s, rec)
+                agg.submit_track(range_start, oldest_s, rec)
 
             return cb, box
 
@@ -287,9 +347,15 @@ class CovaPipeline:
 
             return emit
 
-        for ri, (start, _) in enumerate(bounds):
-            cb, cb_box = on_dead_factory(range_starts[ri], start)
-            ht = HostTracker(on_dead=cb)
+        host_tracking = cfg.compressed.host_tracking
+        for ri, (sx, start, _) in enumerate(bounds):
+            cb, cb_box = on_dead_factory(range_starts[ri], start, sx)
+            # One native tracker per range and run (its C state is freed
+            # when the object goes).
+            if host_tracking:
+                ht = HostSort(cfg.sort, on_dead=cb)
+            else:
+                ht = HostTracker(on_dead=cb)
             cb_box["ht"] = ht
             trackers.append(ht)
 
@@ -308,11 +374,11 @@ class CovaPipeline:
             )
 
         # Pre-feed the selectors with every encoded frame in decode order.
-        for ri, (start, count) in enumerate(bounds):
+        for ri, (sx, start, count) in enumerate(bounds):
             sel = selectors[ri]
+            d = self.streams[sx].demux
             for si in range(start, start + count):
-                info = demux.sample(si)
-                sel.push_frame(si, pos_of[ri][si] / fps, info.keyframe)
+                sel.push_frame(si, pos_of[ri][si] / fps, d.sample(si).keyframe)
 
         start_time = time.perf_counter()
         # Window accounting: window j of a range covers source frames
@@ -321,54 +387,76 @@ class CovaPipeline:
         # ranges stop contributing (their slots process zero-filled
         # metadata, which the host mirror skips).
         g = cfg.compressed.gamma
-        wmax = [max(0, (c - t) // g + 1) for _, c in bounds]
+        wmax = [max(0, (c - t) // g + 1) for _, _, c in bounds]
         longest_w = max(wmax, default=0)
         n_chunks = -(-longest_w // f) if longest_w > 0 else 0
         self.num_chunks = n_chunks
         nf_chunk = (f - 1) * g + t  # source frames fed per chunk
-        total_frames = sum(c for _, c in bounds)
+        total_frames = sum(c for _, _, c in bounds)
 
         threads = cfg.parallel.decode_threads
-        mh, mw = demux.mb_height, demux.mb_width
+        mh, mw = self.demux.mb_height, self.demux.mb_width
+
+        def live_windows(win0, skipped):
+            """(range, window of the chunk, range-relative display index
+            of the window's newest frame, the frame its mask describes)
+            for every real window of a chunk."""
+            for ri in range(len(bounds)):
+                if skipped[ri]:
+                    continue
+                for k in range(min(f, wmax[ri] - win0)):
+                    yield ri, k, (win0 + k) * g + t - 1
+
+        def select(ri, frame_idx, min_required_frame):
+            """Feed the window's mask frame to the range's selector, with
+            the tracker's min_required frame (None when nothing died)."""
+            if last == "track":
+                return
+            start = bounds[ri][1]
+            # The selector works in the rank/fps domain.
+            min_required = (
+                None if min_required_frame is None else (start + min_required_frame) / fps
+            )
+            selectors[ri].on_mask_frame((start + frame_idx) / fps, min_required)
+
+        def host_track(pulled, win0, skipped):
+            """host_tracking mode: the chunk's bit-packed masks through
+            native CC + SORT (csrc/cctrack.cc) per range and window, and
+            the selector fed from them."""
+            r_, f_, mh_, mw_ = self.stage.masks_shape
+            masks = unpack_masks(pulled.numpy(), self.stage.masks_shape)
+            ltwh, _, valid = cc_boxes(
+                masks.reshape(r_ * f_, mh_, mw_),
+                cfg.compressed.cc_threshold,
+                HOST_MAX_BOXES,
+            )
+            ltwh = ltwh.reshape(r_, f_, HOST_MAX_BOXES, 4)
+            valid = valid.reshape(r_, f_, HOST_MAX_BOXES)
+            for ri, k, frame_idx in live_windows(win0, skipped):
+                dets = ltwh[ri, k][valid[ri, k]]
+                select(ri, frame_idx, trackers[ri].update(dets, float(frame_idx)))
+
+        names = (
+            "track_ltwh", "track_id", "track_id_post", "exists",
+            "active", "predicted", "death", "death_id", "death_start",
+            "death_last_match", "death_tsu", "death_active",
+        )
 
         def host_mirror(pulled, win0, skipped):
             """Consume one chunk's packed SortOutputs: HostTracker
             histories/deaths + FrameSelector scheduling per window."""
             out_np = unpack_outputs_np(pulled.numpy(), self.stage.packed_shape)
-            names = (
-                "track_ltwh", "track_id", "track_id_post", "exists",
-                "active", "predicted", "death", "death_id", "death_start",
-                "death_last_match", "death_tsu", "death_active",
-            )
-            for ri, (start, _) in enumerate(bounds):
-                if skipped[ri]:
-                    continue
-                sel = selectors[ri]
-                ht = trackers[ri]
-                for k in range(f):
-                    if win0 + k >= wmax[ri]:
-                        break
-                    # Range-relative display index of the window's
-                    # newest frame (the frame this mask describes).
-                    frame_idx = (win0 + k) * g + t - 1
-                    pts = (start + frame_idx) / fps
-                    row = types.SimpleNamespace(
-                        **{n: getattr(out_np, n)[ri, k] for n in names}
-                    )
-                    min_required_frame = ht.update(float(frame_idx), row)
-                    if last == "track":
-                        continue
-                    min_required = (
-                        None
-                        if min_required_frame is None
-                        else (start + min_required_frame) / fps
-                    )
-                    sel.on_mask_frame(pts, min_required)
+            for ri, k, frame_idx in live_windows(win0, skipped):
+                row = types.SimpleNamespace(
+                    **{n: getattr(out_np, n)[ri, k] for n in names}
+                )
+                select(ri, frame_idx, trackers[ri].update(float(frame_idx), row))
 
-        # Software-pipelined chunk loop: while chunk i's packed outputs
-        # cross to the host, the host entropy-decodes chunk i+1 and the
-        # device works on it; the host mirror for chunk i runs one
-        # iteration later, when its copy has landed.
+        mirror = host_track if host_tracking else host_mirror
+        # Software-pipelined chunk loop: while chunk i's outputs cross to
+        # the host, the host entropy-decodes chunk i+1 and the device
+        # works on it; the host mirror for chunk i runs one iteration
+        # later, when its copy has landed.
         timers = StageTimers()
         pending_mirror = None  # (_HostCopy, win0, skipped) awaiting mirror
         for chunk_i in range(n_chunks):
@@ -380,12 +468,12 @@ class CovaPipeline:
                 # zero motion (mv_x=mv_y=8 -> offset 128) in padding
                 meta_chunk[..., 1] = 0x88
             skipped = []
-            for ri, (start, count) in enumerate(bounds):
+            for ri, (sx, start, count) in enumerate(bounds):
                 n = min(nf_chunk, count - off)
                 if win0 >= wmax[ri] or n <= 0:
                     skipped.append(True)
                     continue
-                demux.entropy_decode_packed16(
+                self.streams[sx].demux.entropy_decode_packed16(
                     disp[ri][off : off + n],
                     with_nnz=cfg.compressed.use_nnz_channel,
                     signed_mv=cfg.compressed.signed_mv,
@@ -398,36 +486,43 @@ class CovaPipeline:
                 continue
 
             t_dev = time.perf_counter()
-            ts0 = np.full(self.num_ranges, off + t - 1, np.int32)
-            nwin = np.array([max(0, min(f, wm - win0)) for wm in wmax], np.int32)
-            packed, _, _ = self.stage.run_chunk(meta_chunk, ts0, nwin)
+            if host_tracking:
+                out = self.stage.run_chunk_masks(meta_chunk)
+            else:
+                ts0 = np.full(self.num_ranges, off + t - 1, np.int32)
+                nwin = np.array([max(0, min(f, wm - win0)) for wm in wmax], np.int32)
+                out, _, _ = self.stage.run_chunk(meta_chunk, ts0, nwin)
             timers.device_dispatch += time.perf_counter() - t_dev
             if last in ("mask", "boxes"):
                 continue
-            pulled = _HostCopy(packed)
+            pulled = _HostCopy(out)
 
             if pending_mirror is not None:
                 t_mir = time.perf_counter()
-                host_mirror(*pending_mirror)
+                mirror(*pending_mirror)
                 timers.host_mirror += time.perf_counter() - t_mir
             pending_mirror = (pulled, win0, skipped)
         if pending_mirror is not None:
             t_mir = time.perf_counter()
-            host_mirror(*pending_mirror)
+            mirror(*pending_mirror)
             timers.host_mirror += time.perf_counter() - t_mir
 
         # EOS: flush selectors + trackers, then decode scheduled frames.
         for sel, ht in zip(selectors, trackers):
             sel.finish()
-            ht.finalize(cfg.sort.min_hits)
+            if host_tracking:
+                ht.finalize()
+            else:
+                ht.finalize(cfg.sort.min_hits)
 
         pixel_frames = 0
         if last == "full" and any(pix_jobs):
             t_pix = time.perf_counter()
-            pixel_frames = self._run_pixel_stage(pix_jobs)
+            pixel_frames = self._run_pixel_stage(pix_jobs, [sx for sx, _, _ in bounds])
             timers.pixel_stage += time.perf_counter() - t_pix
 
-        self.aggregator.terminate()
+        for s in self.streams:
+            s.aggregator.terminate()
         elapsed = time.perf_counter() - start_time
 
         counts = [s.counts for s in selectors]
@@ -442,19 +537,19 @@ class CovaPipeline:
             timers=timers,
         )
 
-    def _run_pixel_stage(self, jobs_per_range):
+    def _run_pixel_stage(self, jobs_per_range, stream_of_range):
         """Selective decode: feed scheduled frames in GoP-prefix order to
         libavcodec, drop droppable (dependency-only) outputs, hand the
-        rest to the detector. Ranges decode concurrently, one decoder per
-        range; ctypes drops the GIL inside libavcodec."""
+        rest to the stream's detector. Ranges decode concurrently, one
+        decoder per range; ctypes drops the GIL inside libavcodec."""
         import concurrent.futures
 
-        demux = self.demux
         # Prefetch bitstream payloads serially: the demuxer's FILE* is
         # seek-position stateful, so only the libavcodec work is fanned
         # out to threads.
         prefetched = []
-        for jobs in jobs_per_range:
+        for ri, jobs in enumerate(jobs_per_range):
+            demux = self.streams[stream_of_range[ri]].demux
             ordered = sorted(jobs, key=lambda x: x.sample_index)
             drop = {fr.sample_index: fr.droppable for fr in ordered}
             # PAFF: one sample = one FIELD; libavcodec weaves the
@@ -482,9 +577,11 @@ class CovaPipeline:
                  for si in sorted(drop)]
             )
 
-        def decode_range(items):
+        def decode_range(args):
+            items, sx = args
             if not items:
                 return []
+            demux = self.streams[sx].demux
             dec = PixelDecoder(demux.extradata())
             frames = []
             droppable_by_pts = {pts: d for _, pts, d in items}
@@ -510,12 +607,25 @@ class CovaPipeline:
 
         workers = max(1, min(len(prefetched), self.cfg.parallel.decode_threads))
         with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
-            per_range = list(ex.map(decode_range, prefetched))
+            per_range = list(ex.map(decode_range, zip(prefetched, stream_of_range)))
 
-        infer_frames = [fr for frames in per_range for fr in frames]
-        self.log(f"pixel stage: decoded {len(infer_frames)} inference frames")
-        if self.detector is not None and infer_frames:
-            dets = self.detector(infer_frames)
-            if dets:
-                self.aggregator.update_dnn(dets)
-        return len(infer_frames)
+        # Inference + aggregation per stream (independent detector and
+        # aggregator state; a solo run is the 1-stream special case).
+        total = 0
+        for sidx, s in enumerate(self.streams):
+            infer_frames = [
+                fr
+                for ri, frames in enumerate(per_range)
+                if stream_of_range[ri] == sidx
+                for fr in frames
+            ]
+            total += len(infer_frames)
+            self.log(
+                f"pixel stage: decoded {len(infer_frames)} inference frames"
+                + (f" (stream {sidx})" if len(self.streams) > 1 else "")
+            )
+            if s.detector is not None and infer_frames:
+                dets = s.detector(infer_frames)
+                if dets:
+                    s.aggregator.update_dnn(dets)
+        return total

@@ -1,16 +1,21 @@
-"""Run the end-to-end CoVA pipeline (all-device tracking) on a video.
+"""Run the end-to-end CoVA pipeline on a video.
 
 The counterpart of examples/run_cova.py for the PyTorch port:
 
     python -m cova_tpu_torch.run_cova VIDEO.mp4 OUTPUT_DIR [--device cuda]
-        [--max-frames N]
+        [--max-frames N] [--device-tracking]
 
-BlobNet weights come from $COVA_BLOBNET_CKPT (an .npz weight artifact) or
-the committed artifacts/blobnet_demo.npz; the artifact's stored
-`__meta__` sets the metadata channels (use_nnz_channel, signed_mv). The
-port's codec library carries no libavcodec pixel decoder, so the run
-stops after frame selection (last="select"); there is no detector, so
-dnn.csv and assoc.csv stay empty.
+The run uses the CovaConfig defaults, so connected components and SORT
+run in native host code on the device's bit-packed masks
+(host_tracking=True); --device-tracking runs them on the device instead
+(host_tracking=False, the connected-components CUDA kernel and the
+device SORT). BlobNet weights come from $COVA_BLOBNET_CKPT (an .npz
+weight artifact) or the committed artifacts/blobnet_demo.npz; the
+artifact's stored `__meta__` sets the metadata channels
+(use_nnz_channel, signed_mv). The port's codec library carries no
+libavcodec pixel decoder, so the run stops after frame selection
+(last="select"); there is no detector, so dnn.csv and assoc.csv stay
+empty.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--max-frames", type=int, default=None,
                     help="cap on frames per GoP range")
+    ap.add_argument("--device-tracking", action="store_true",
+                    help="run CC + SORT on the device (host_tracking=False)")
     args = ap.parse_args(argv)
 
     from cova_tpu_torch.config import CovaConfig
@@ -49,7 +56,7 @@ def main(argv=None) -> None:
             cfg.compressed,
             use_nnz_channel=bool(wmeta.get("use_nnz_channel", False)),
             signed_mv=bool(wmeta.get("signed_mv", False)),
-            host_tracking=False,
+            host_tracking=not args.device_tracking,
         ),
     )
     pipe = CovaPipeline(

@@ -173,26 +173,29 @@ def test_pipeline_csvs_match_jax(paff_clips, tmp_path, clip, num_ranges, batch_f
     assert len(rows) > 1
 
 
-def test_run_cova_cli_writes_csvs(paff_clips, tmp_path, capsys):
+@pytest.mark.parametrize("flags", [[], ["--device-tracking"]])
+def test_run_cova_cli_writes_csvs(paff_clips, tmp_path, capsys, flags):
     from cova_tpu_torch import run_cova
 
     out = tmp_path / "out"
-    run_cova.main([str(paff_clips[(16, 8, 160, 16)]), str(out), "--device", "cpu"])
+    run_cova.main([str(paff_clips[(16, 8, 160, 16)]), str(out), "--device", "cpu", *flags])
     assert "Frames: 320" in capsys.readouterr().out
     for name in CSVS:
         assert (out / f"{name}.csv").exists()
 
 
 def test_unported_modes_raise(paff_clips, tmp_path):
+    """Only num_devices > 1 (the mesh) is left unported: the host-tracking
+    default constructs, and a multi-device config raises, for a single
+    stream and for multi-stream ingest alike."""
     mp4 = str(paff_clips[(16, 8, 160, 16)])
     cfg = _cfg(tcfg, 2, 16)
     host = dataclasses.replace(
         cfg, compressed=dataclasses.replace(cfg.compressed, host_tracking=True)
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CovaPipeline(mp4, str(tmp_path / "a"), host)
+    assert CovaPipeline(mp4, str(tmp_path / "a"), host).cfg.compressed.host_tracking
     multi = dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(num_devices=2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         CovaPipeline(mp4, str(tmp_path / "b"), multi)
-    with pytest.raises(NotImplementedError):
-        CovaPipeline.multi([(mp4, str(tmp_path / "c"), None)], cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CovaPipeline.multi([(mp4, str(tmp_path / "c"), None)], multi)

@@ -34,6 +34,7 @@ COPIES = {
     # The port builds its own library (no libavcodec, pixdec stub) from
     # the shared sources in cova_tpu/csrc: paths and the build differ.
     "codec/__init__.py": ("_DIR = ", "_lib = None"),
+    "tracker/host.py": None,
 }
 
 
@@ -69,11 +70,22 @@ def test_unpack_outputs_np_matches_original():
     assert port == orig
 
 
+@pytest.mark.parametrize(
+    "rel,name",
+    [("pipeline/compressed.py", "unpack_masks"), ("utils/dataset.py", "pack_metadata")],
+)
+def test_copied_function_matches_original(rel, name):
+    port = _function_source(REPO / "cova_tpu_torch" / rel, name)
+    orig = _function_source(REPO / "cova_tpu" / rel, name)
+    assert port == orig
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import cova_tpu_torch.pipeline.cova, cova_tpu_torch.run_cova\n"
-        "import cova_tpu_torch.ops.cuda.cc_kernel\n"
+        "import cova_tpu_torch.ops.cuda.cc_kernel, cova_tpu_torch.ops.assignment\n"
+        "import cova_tpu_torch.tracker.host, cova_tpu_torch.pipeline.sort_pipeline\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cova_tpu'))\n"
         "print(bad)\n"
