@@ -8,8 +8,10 @@ Run from the root of a checkout, with no arguments:
 Phases:
   0  the card, the software versions;
   1  builds every CUDA kernel of the port from the sources in the
-     checkout, and the port's codec library;
-  2  holds each kernel against its plain PyTorch version on the card;
+     checkout (the CC kernel and the NMS kernel, one nvcc each, all at
+     once), and the port's codec library;
+  2  holds each kernel against its plain PyTorch version on the card:
+     CC labels and the four NMS outputs equal bit for bit;
   3  the all-device compressed stage on a seeded chunk (R=8, T=4), parts
      at F=128, the whole stage at F=16, a small chunk against the CPU;
   4  `CovaPipeline` (host_tracking=False) end to end on a generated
@@ -17,7 +19,16 @@ Phases:
   5  the host-tracking masks step (`run_chunk_masks`) timed at R=8,
      F=128 on 45x80 and 68x120, and a sub-chunk against the CPU;
   6  the default `CovaPipeline` (host_tracking=True) on the same clip,
-     its CSVs byte-identical to the port's run on the CPU.
+     its CSVs byte-identical to the port's run on the CPU;
+  7  the pixel-domain oracle: full-width YOLOv4-608 (80 classes) on
+     seeded darknet-format weights, through `make_yolo_detector` on
+     1280x720 I420 frames built from artifacts/synth_bg.npy, counting
+     the NMS kernel's launches; per-frame preprocess, network and
+     decode+NMS times at the reference thresholds and with every
+     candidate reaching NMS; one frame against the same detector on the
+     CPU, and the cfg-built network against the hand-written one. (The
+     port's codec has no pixel decoder, so the oracle is driven through
+     its own entry point rather than through the pipeline.)
 Every phase raises on failure; nothing falls back to the CPU. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -50,6 +61,12 @@ KERNELS = {
         "cuda",
         "cova_tpu_torch/csrc/cc_kernel.cu",
         "cova_tpu/ops/pallas/cc_kernel.py:34",
+    ),
+    # No Pallas original: the fori_loop sweep XLA ran on the TPU.
+    "nms": (
+        "cuda",
+        "cova_tpu_torch/csrc/nms_kernel.cu",
+        "cova_tpu/ops/nms.py:47",
     ),
 }
 
@@ -92,23 +109,34 @@ def phase0_environment() -> str:
     log(
         "[0] codec: the port builds libcovacodec from cova_tpu/csrc with "
         "pixdec.cc replaced by cova_tpu_torch/csrc/pixdec_stub.cc (no "
-        "libavcodec); the pipeline stops after frame selection (last=select)"
+        "libavcodec); the pipeline stops after frame selection (last=select), "
+        "and phase 7 drives the oracle on frames it builds"
     )
     return smi
 
 
 def phase1_build() -> None:
+    """One nvcc per kernel source and the codec's g++ build, all started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from cova_tpu_torch import codec
     from cova_tpu_torch.ops.cuda import _build
 
-    for _, source, _ in KERNELS.values():
-        unit = pathlib.Path(source).stem
+    def timed(label, fn):
         t0 = time.perf_counter()
-        _build.build(unit, verbose=True)
-        log(f"[1] built {source} in {time.perf_counter() - t0:.3f} s")
+        fn()
+        return label, time.perf_counter() - t0
+
+    jobs = [(source, lambda u=pathlib.Path(source).stem: _build.build(u, verbose=True))
+            for _, source, _ in KERNELS.values()]
+    jobs.append(("libcovacodec", codec.lib))
     t0 = time.perf_counter()
-    codec.lib()
-    log(f"[1] built libcovacodec in {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = [f.result() for f in [pool.submit(timed, *job) for job in jobs]]
+    for label, dt in done:
+        log(f"[1] built {label} in {dt:.3f} s")
+    log(f"[1] all builds in {time.perf_counter() - t0:.3f} s")
 
 
 def _spiral(h: int = 45, w: int = 80):
@@ -123,7 +151,7 @@ def _spiral(h: int = 45, w: int = 80):
     return mask
 
 
-def phase2_kernels() -> dict:
+def phase2_cc() -> dict:
     """Every CC kernel case against the plain version, labels exactly
     equal. Returns the JSON record of the kernel (without launches)."""
     import numpy as np
@@ -170,6 +198,93 @@ def phase2_kernels() -> dict:
         "name": "cc_label", "route": route, "source": source,
         "replaces": replaces, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
+    }
+
+
+def _nms_case(seed, n, classes, spread=600.0, ties=False, top=1.0):
+    """Seeded NMS candidates (tests/test_torch_nms.py's generator):
+    (n, 4) ltwh, (n,) scores, (n,) int32 classes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, spread, (n, 2))
+    wh = rng.uniform(8, 120, (n, 2))
+    ltwh = np.concatenate([xy, wh], 1).astype(np.float32)
+    scores = rng.uniform(0, top, n).astype(np.float32)
+    if ties:
+        scores = (np.round(scores * 8) / 8).astype(np.float32)
+    return ltwh, scores, rng.integers(0, classes, n).astype(np.int32)
+
+
+NMS_CASES = {
+    "N=512 80 classes": dict(seed=0, n=512, classes=80),
+    "N=512 2 classes, heavy overlap": dict(seed=1, n=512, classes=2, spread=60.0),
+    "N=512 80 classes, exact ties": dict(seed=2, n=512, classes=80, ties=True),
+    "N=512 2 classes, ties, overlap": dict(seed=3, n=512, classes=2, spread=120.0,
+                                           ties=True),
+    "N=512 all below 0.25": dict(seed=4, n=512, classes=80, top=0.25),
+    "N=40 3 classes": dict(seed=5, n=40, classes=3),
+}
+
+
+def phase2_nms() -> dict:
+    """Every NMS case against the plain version on the card, image by
+    image and as one batch, at score thresholds 0.25 and 0.0: the four
+    outputs equal bit for bit. Times the kernel and the plain version at
+    the oracle's shape (one image, N=512). Returns the JSON record of the
+    kernel (without launches)."""
+    import torch
+
+    from cova_tpu_torch.ops.cuda.nms_kernel import nms, nms_plain
+
+    dev = torch.device("cuda")
+
+    def check(label, args, thr):
+        got = nms(*args, 0.2, thr, 64)
+        ref = nms_plain(*args, 0.2, thr, 64)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, r, name in zip(got, ref, ("ltwh", "scores", "classes", "valid")):
+            if g.dtype != r.dtype or g.shape != r.shape:
+                raise AssertionError(f"{label}: {name} {g.dtype} {tuple(g.shape)} "
+                                     f"!= {r.dtype} {tuple(r.shape)}")
+            err = max(err, float((g.double() - r.double()).abs().max()))
+            if not torch.equal(g, r):
+                raise AssertionError(f"{label}: kernel {name} differs from plain")
+        return err, int(ref[3].sum())
+
+    max_err = 0.0
+    batch = []
+    for label, kw in NMS_CASES.items():
+        args = [torch.from_numpy(a)[None].to(dev) for a in _nms_case(**kw)]
+        if kw["n"] == 512:
+            batch.append(args)
+        kept = []
+        for thr in (0.25, 0.0):
+            err, k = check(f"{label} thr={thr}", args, thr)
+            max_err = max(max_err, err)
+            kept.append(k)
+        log(f"[2] nms {label}: outputs equal, kept {kept[0]} at score 0.25, "
+            f"{kept[1]} at 0.0")
+    stacked = [torch.cat(parts) for parts in zip(*batch)]
+    for thr in (0.25, 0.0):
+        err, k = check(f"batch of {len(batch)} thr={thr}", stacked, thr)
+        max_err = max(max_err, err)
+    log(f"[2] nms batch of {len(batch)} images x 512: outputs equal")
+    args = [torch.from_numpy(a)[None].to(dev) for a in _nms_case(**NMS_CASES["N=512 80 classes"])]
+    timed = {}
+    for thr in (0.25, 0.0):
+        k_ms = cuda_ms(lambda: nms(*args, 0.2, thr, 64))
+        p_ms = cuda_ms(lambda: nms_plain(*args, 0.2, thr, 64))
+        timed[thr] = (k_ms, p_ms)
+        log(f"[2] nms B=1 N=512 80 classes score {thr}: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms")
+    log(f"[2] nms launches so far: {nms.launches}")
+    route, source, replaces = KERNELS["nms"]
+    k_ms, p_ms = timed[0.25]
+    return {
+        "name": "nms", "route": route, "source": source, "replaces": replaces,
+        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
     }
 
 
@@ -326,6 +441,7 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples):
     import torch
 
     from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
+    from cova_tpu_torch.ops.cuda.nms_kernel import nms
     from cova_tpu_torch.pipeline.cova import CovaPipeline
 
     pipe = CovaPipeline(str(mp4), str(out), cfg, sd, device=device, log=log)
@@ -333,10 +449,11 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples):
         pipe.warmup()
         torch.cuda.synchronize()
     connected_components.launches = 0
+    nms.launches = 0
     res = pipe.run()
     if device == "cuda":
         torch.cuda.synchronize()
-    launches = {"cc_label": connected_components.launches}
+    launches = {"cc_label": connected_components.launches, "nms": nms.launches}
     tm = res.timers
     log(
         f"[{tag}] pipeline on {device}: {res.num_frames} frames in "
@@ -475,6 +592,213 @@ def phase6_default_pipeline(mp4, samples, tmp, phase4) -> None:
         )
 
 
+YOLO_CFG = REPO / "cova_tpu" / "models" / "cfg" / "yolov4.cfg"
+# Card against CPU on one frame: the 608x608 input (the antialiased
+# resize sums in another order; the tests hold it to JAX at the same
+# tolerance) and the raw heads (float32 sums in other orders through 110
+# layers, TF32 off on the card; 1.6e-6 measured on an H100).
+INPUT_TOL = 1e-4
+HEAD_TOL = 1e-4
+
+
+def _yolo_weights(path: pathlib.Path, seed: int, gain: float = 0.8) -> None:
+    """Seeded darknet-format weights for full-width YOLOv4 (80 classes),
+    in cfg order, by the recipe of tests/test_yolov4.py's golden test,
+    which keeps 110 stacked convs finite: biases N(0, 0.1), BN scale
+    U(0.9, 1.1), mean N(0, 0.1), variance U(0.8, 1.2), conv weights
+    N(0, gain * sqrt(2 / fan_in)). The golden test's gain of 0.5 lets
+    the frame's content die out on the way (two different frames give
+    heads within 1e-6 of each other, and the 512 best scores lie in a
+    band 0.01 wide with hundreds of exact ties); at 0.8 the heads still
+    follow the frame, and stay below 1 in magnitude."""
+    import numpy as np
+
+    from cova_tpu_torch.models.yolov4 import YOLOv4, darknet_convs
+
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as fh:
+        fh.write(np.zeros(5, np.int32).tobytes())
+        for m in darknet_convs(YOLOv4(80)):
+            f, cin, k = m.conv.out_channels, m.conv.in_channels, m.conv.kernel_size[0]
+            if m.bn is None:
+                parts = [rng.normal(0, 0.1, f)]
+            else:
+                parts = [rng.normal(0, 0.1, f), rng.uniform(0.9, 1.1, f),
+                         rng.normal(0, 0.1, f), rng.uniform(0.8, 1.2, f)]
+            parts.append(rng.normal(0, gain * np.sqrt(2.0 / (k * k * cin)), f * cin * k * k))
+            for p in parts:
+                fh.write(p.astype(np.float32).tobytes())
+
+
+def _oracle_frames(n: int, seed: int) -> list:
+    """n 1280x720 I420 frames [(ts, y, u, v)]: the synth scene's
+    background (artifacts/synth_bg.npy, 640x360 luma) upscaled 2x, grey
+    chroma, and four bright rectangles of seeded size, place and colour
+    drawn into each."""
+    import numpy as np
+
+    y0 = np.load(REPO / "artifacts" / "synth_bg.npy").repeat(2, 0).repeat(2, 1)
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n):
+        y = y0.copy()
+        u = np.full((360, 640), 128, np.uint8)
+        v = np.full((360, 640), 128, np.uint8)
+        for _ in range(4):
+            h, w = int(rng.integers(40, 200)), int(rng.integers(60, 320))
+            t, l = int(rng.integers(0, 720 - h)), int(rng.integers(0, 1280 - w))
+            y[t : t + h, l : l + w] = rng.integers(200, 256)
+            u[t // 2 : (t + h) // 2, l // 2 : (l + w) // 2] = rng.integers(0, 256)
+            v[t // 2 : (t + h) // 2, l // 2 : (l + w) // 2] = rng.integers(0, 256)
+        frames.append((i / 30.0, y, u, v))
+    return frames
+
+
+def _recs_diff(got, ref, rel: float, abs_: float) -> list:
+    """Where two BoxRec lists differ: the same count, and rec by rec the
+    same class, timestamp and track, coordinates and confidence within
+    rel/abs."""
+    import math
+
+    if len(got) != len(ref):
+        return [f"{len(got)} recs != {len(ref)}"]
+    bad = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if (g.class_id, g.timestamp, g.track_id) != (r.class_id, r.timestamp, r.track_id):
+            bad.append(f"rec {i}: class/ts {g.class_id}/{g.timestamp} != "
+                       f"{r.class_id}/{r.timestamp}")
+            continue
+        for key in ("left", "top", "width", "height", "area", "confidence"):
+            a, b = getattr(g, key), getattr(r, key)
+            if not math.isclose(a, b, rel_tol=rel, abs_tol=abs_):
+                bad.append(f"rec {i}: {key} {a!r} != {b!r}")
+    return bad
+
+
+def _stage_ms(det, frame) -> dict:
+    """Per-frame times of one detector (CUDA events, median of 5): the
+    planes' upload, preprocess (YUV -> 608 RGB), the network, decode +
+    NMS, and the whole call including the copy back and the BoxRecs."""
+    _, y, u, v = frame
+    planes = det.planes(y, u, v)
+    x = det.preprocess(*planes)
+    outs = det.network(x)
+    return {
+        "upload": cuda_ms(lambda: det.planes(y, u, v)),
+        "preprocess": cuda_ms(lambda: det.preprocess(*planes)),
+        "network": cuda_ms(lambda: det.network(x)),
+        "decode+nms": cuda_ms(lambda: det.postprocess(outs)),
+        "call": cuda_ms(lambda: det([frame])),
+    }
+
+
+def phase7_oracle(tmp: pathlib.Path) -> int:
+    """The oracle on the card. Returns the NMS kernel's launches in the
+    detector's run over the frames."""
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.models.yolov4 import make_yolo_detector
+    from cova_tpu_torch.ops.cuda.nms_kernel import nms
+
+    t0 = time.perf_counter()
+    weights = tmp / "yolov4_seeded.weights"
+    _yolo_weights(weights, SEED)
+    frames = _oracle_frames(5, SEED)
+    log(f"[7] seeded YOLOv4 weights ({weights.stat().st_size} bytes) and "
+        f"{len(frames)} frames 1280x720 made in {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    det = make_yolo_detector(str(weights), device="cuda")
+    det0 = make_yolo_detector(str(weights), score_threshold=0.0, device="cuda")
+    n_params = sum(p.numel() for p in det.model.parameters())
+    det(frames[:1])
+    det0(frames[:1])
+    torch.cuda.synchronize()
+
+    # The main path: the detector over the frames.
+    nms.launches = 0
+    t0 = time.perf_counter()
+    recs = det(frames)
+    dt = time.perf_counter() - t0
+    launches = nms.launches
+    log(f"[7] make_yolo_detector(device=cuda), {n_params} parameters, score 0.25 "
+        f"nms-iou 0.2: {len(frames)} frames in {dt * 1e3:.3f} ms, {len(recs)} "
+        f"BoxRecs, nms launches {launches}")
+    if launches != len(frames):
+        raise AssertionError(f"nms launched {launches} times for {len(frames)} frames")
+    for r in recs:
+        vals = (r.left, r.top, r.width, r.height, r.confidence)
+        if not (all(np.isfinite(vals)) and r.width > 0 and r.height > 0
+                and 0 <= r.class_id < 80 and 0.25 < r.confidence <= 1.0):
+            raise AssertionError(f"bad BoxRec {r}")
+    per_frame = [sum(r.timestamp == f[0] for r in recs) for f in frames]
+    recs0 = det0(frames)
+    per_frame0 = [sum(r.timestamp == f[0] for r in recs0) for f in frames]
+    log(f"[7] BoxRecs per frame: {per_frame} at score 0.25, {per_frame0} at 0.0")
+    if not recs:
+        raise AssertionError("no detections at the reference thresholds")
+
+    for label, d in (("score 0.25 nms-iou 0.2", det), ("score 0.0 nms-iou 0.2", det0)):
+        ms = _stage_ms(d, frames[0])
+        log(f"[7] per frame, {label}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items()))
+    log(f"[7] peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    # One frame against the same detector on the CPU. The network is held
+    # within INPUT_TOL and HEAD_TOL. The detections are held on the same heads: the
+    # card's heads through the CPU's decode + plain NMS give the card's
+    # BoxRecs. (Random weights leave near-ties among the 512 best scores,
+    # and a float32 rounding of a head can reorder them, so the CPU's own
+    # heads are compared too and the differences printed.)
+    failures = []
+    ts, y, u, v = frames[0]
+    cpu = make_yolo_detector(str(weights), device="cpu")
+    x_cpu = cpu.preprocess(*cpu.planes(y, u, v))
+    x_gpu = det.preprocess(*det.planes(y, u, v))
+    in_err = float((x_gpu.cpu() - x_cpu).abs().max())
+    t0 = time.perf_counter()
+    h_cpu = cpu.network(x_cpu)
+    cpu_net_s = time.perf_counter() - t0
+    h_gpu = det.network(x_gpu)
+    head_err = max(float((g.cpu() - c).abs().max()) for g, c in zip(h_gpu, h_cpu))
+    scale = max(float(c.abs().max()) for c in h_cpu)
+    log(f"[7] frame 0, card against CPU: input max err {in_err:.3g}, raw heads max "
+        f"err {head_err:.3g} (largest |head| {scale:.3g}; tolerances {INPUT_TOL}, "
+        f"{HEAD_TOL}); "
+        f"CPU network {cpu_net_s:.3f} s")
+    if not (in_err <= INPUT_TOL and head_err <= HEAD_TOL):
+        failures.append(f"card against CPU: input err {in_err}, heads err {head_err}")
+    recs_gpu = det(frames[:1])
+    post = [a[0].numpy() for a in cpu.postprocess([h.cpu() for h in h_gpu])]
+    bad = _recs_diff(recs_gpu, cpu.boxrecs(ts, y.shape, *post), 1e-5, 1e-4)
+    log(f"[7] frame 0, the card's heads through the card's decode + NMS kernel "
+        f"and through the CPU's decode + plain NMS: {len(recs_gpu)} BoxRecs, "
+        + ("equal" if not bad else f"{len(bad)} differences: {bad[:6]}"))
+    if bad:
+        failures.append("BoxRecs differ from the CPU's on the same heads")
+    recs_cpu = cpu(frames[:1])
+    diff = _recs_diff(recs_gpu, recs_cpu, 1e-4, 1e-3)
+    log(f"[7] frame 0, the card's detector against the CPU's (their own heads): "
+        f"{len(recs_gpu)} against {len(recs_cpu)} BoxRecs, "
+        + ("equal" if not diff else f"{len(diff)} differences: {diff[:6]}"))
+
+    # The network built from the darknet cfg file.
+    cfgdet = make_yolo_detector(str(weights), cfg_path=str(YOLO_CFG), device="cuda")
+    h_cfg = cfgdet.network(x_gpu)
+    cfg_err = max(float((a - b).abs().max()) for a, b in zip(h_cfg, h_gpu))
+    exact = all(torch.equal(a, b) for a, b in zip(h_cfg, h_gpu))
+    bad = _recs_diff(cfgdet(frames[:1]), recs_gpu, 0.0, 0.0)
+    log(f"[7] cfg-built network ({YOLO_CFG.name}) against the hand-written one on "
+        f"the card: heads max err {cfg_err:.3g} ({'bit for bit' if exact else 'not exact'}), "
+        f"BoxRecs {'equal' if not bad else bad[:6]}")
+    # The same convolutions in the same order: equal heads, equal BoxRecs.
+    if cfg_err > HEAD_TOL or (exact and bad):
+        failures.append(f"cfg-built network differs: heads {cfg_err}, BoxRecs {bad[:3]}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not (REPO / "cova_tpu_torch").is_dir() or not (REPO / "cova_tpu").is_dir():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
@@ -489,7 +813,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase0_environment()
     phase1_build()
-    record = phase2_kernels()
+    records = {"cc_label": phase2_cc(), "nms": phase2_nms()}
     phase3_compressed_stage()
     from cova_tpu_torch.codec import Mp4Demuxer
 
@@ -503,11 +827,12 @@ def main() -> int:
         res4, launches = phase4_pipeline(mp4, samples, tmp)
         phase5_masks_step()
         phase6_default_pipeline(mp4, samples, tmp, res4)
-    record["launches"] = launches["cc_label"]
-    kernels = [{k: record[k] for k in (
+        records["cc_label"]["launches"] = launches["cc_label"]
+        records["nms"]["launches"] = phase7_oracle(tmp)
+    kernels = [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms")}]
-    log(f"[7] smoke total {time.perf_counter() - t_start:.1f} s")
+        "ms", "plain_ms")} for rec in records.values()]
+    log(f"smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,18 @@ cfg.compressed.host_tracking=True):
   device metapreprocess+BlobNet+mask          -> flat bit-packed u8 masks
   host   native CC + SORT (cctrack.cc), FrameSelector schedules decodes
   host   selective pixel decode (libavcodec), droppable frames discarded
+  device oracle detector on the surviving frames (optional; e.g.
+         models.yolov4.make_yolo_detector)
   host   Associator -> track/dnn/assoc/stationary CSVs
 
 With host_tracking=False the device also runs CC (the CUDA kernel) and
 SORT, and the host mirrors its packed per-slot outputs.
 
 The `last` config key stops the pipeline after a named stage for
-debugging: one of "entdec", "mask", "boxes", "track", "select", "full".
+debugging: one of "entdec", "mask", "boxes", "track", "select", "full"
+(the default). A codec library built without libavcodec (the stub
+decoder, csrc/pixdec_stub.cc) cannot run the pixel stage, so "full" then
+raises before any work starts.
 """
 
 from __future__ import annotations
@@ -261,6 +266,8 @@ class CovaPipeline:
         f = cfg.compressed.batch_frames
         fps = cfg.video.fps
         last = cfg.last or "full"
+        if last == "full":
+            self._require_pixel_decoder()
 
         bounds = self._range_bounds()
         if max_frames:
@@ -536,6 +543,21 @@ class CovaPipeline:
             pixel_frames=pixel_frames,
             timers=timers,
         )
+
+    def _require_pixel_decoder(self) -> None:
+        """The pixel stage needs a decoder that opens: refuse to start
+        with the stub, rather than skip the stage."""
+        for s in self.streams:
+            try:
+                PixelDecoder(s.demux.extradata()).close()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    'last="full" needs the selective pixel decoder, and this '
+                    "codec library has none (built with csrc/pixdec_stub.cc, "
+                    'without libavcodec): run with last="select", or call the '
+                    "detector on decoded frames directly "
+                    "(models.yolov4.make_yolo_detector)"
+                ) from e
 
     def _run_pixel_stage(self, jobs_per_range, stream_of_range):
         """Selective decode: feed scheduled frames in GoP-prefix order to

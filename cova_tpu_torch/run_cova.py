@@ -12,10 +12,18 @@ run in native host code on the device's bit-packed masks
 device SORT). BlobNet weights come from $COVA_BLOBNET_CKPT (an .npz
 weight artifact) or the committed artifacts/blobnet_demo.npz; the
 artifact's stored `__meta__` sets the metadata channels
-(use_nnz_channel, signed_mv). The port's codec library carries no
-libavcodec pixel decoder, so the run stops after frame selection
-(last="select"); there is no detector, so dnn.csv and assoc.csv stay
-empty.
+(use_nnz_channel, signed_mv).
+
+The oracle: with $COVA_YOLO_WEIGHTS set to a darknet `.weights` file,
+YOLOv4 (models/yolov4.py, on --device, its NMS the CUDA kernel on a
+card) runs on the frames the selector schedules, the run goes to the end
+(last="full") and fills dnn.csv, assoc.csv and the stationary labels;
+$COVA_YOLO_CFG names the darknet cfg the weights were trained for (other
+darknet variants load too). The full run needs the selective pixel
+decoder: a codec library built without libavcodec (the stub decoder)
+refuses it with an error. Without $COVA_YOLO_WEIGHTS there is no
+detector, and the run stops after frame selection (last="select"), with
+dnn.csv and assoc.csv empty.
 """
 
 from __future__ import annotations
@@ -49,7 +57,19 @@ def main(argv=None) -> None:
     _, variables, wmeta = load_artifact(ckpt)
     print(f"loaded BlobNet weights from {ckpt} ({wmeta or '3ch'})")
 
-    cfg = CovaConfig(last="select")
+    # Optional oracle: COVA_YOLO_WEIGHTS=yolov4.weights (darknet);
+    # COVA_YOLO_CFG=yolov4.cfg builds the topology from the cfg file.
+    detector = None
+    yolo = os.environ.get("COVA_YOLO_WEIGHTS")
+    if yolo:
+        from cova_tpu_torch.models.yolov4 import make_yolo_detector
+
+        detector = make_yolo_detector(
+            yolo, cfg_path=os.environ.get("COVA_YOLO_CFG"), device=args.device
+        )
+        print(f"using YOLOv4 oracle from {yolo}")
+
+    cfg = CovaConfig(last="full" if detector is not None else "select")
     cfg = dataclasses.replace(
         cfg,
         compressed=dataclasses.replace(
@@ -60,7 +80,8 @@ def main(argv=None) -> None:
         ),
     )
     pipe = CovaPipeline(
-        args.input, args.output_dir, cfg, variables=variables, device=args.device
+        args.input, args.output_dir, cfg, variables=variables, detector=detector,
+        device=args.device,
     )
     result = pipe.run(max_frames=args.max_frames)
 

@@ -1,14 +1,50 @@
-"""Per-macroblock metadata packing (the one function of
-cova_tpu/utils/dataset.py the port's pipelines need; the rest of that
-module builds BlobNet training sets).
+"""Per-macroblock metadata packing and half-resolution luma decoding
+(the functions of cova_tpu/utils/dataset.py that the port's pipelines
+and its stand-in oracle need; the rest of that module builds BlobNet
+training sets).
 
-`pack_metadata` is a function-level copy of the original, held equal to
-it by tests/test_torch_port.py.
+`pack_metadata` and `decode_luma_halfres` are function-level copies of
+the originals, held equal to them by tests/test_torch_port.py.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+
+from cova_tpu_torch.codec import Mp4Demuxer, PixelDecoder
+
+
+def decode_luma_halfres(
+    path: str, max_frames: Optional[int] = None, log=print
+) -> np.ndarray:
+    """Full-decode the video (display order) and return (F, H/2, W/2) u8
+    luma (the reference's cv.resize to 640x360 before MOG2; decimation
+    rather than area filtering — labels are pseudo-ground-truth)."""
+    demux = Mp4Demuxer(path)
+    n = demux.num_samples if max_frames is None else min(
+        demux.num_samples, max_frames
+    )
+    dec = PixelDecoder(demux.extradata())
+    frames = {}
+    for i in range(n):
+        dec.send(demux.read_sample(i), demux.sample(i).pts)
+        got = dec.pop(demux.width, demux.height)
+        while got is not None:
+            pts, y, u, v = got
+            frames[pts] = y[::2, ::2].copy()
+            got = dec.pop(demux.width, demux.height)
+    dec.flush()
+    got = dec.pop(demux.width, demux.height)
+    while got is not None:
+        pts, y, u, v = got
+        frames[pts] = y[::2, ::2].copy()
+        got = dec.pop(demux.width, demux.height)
+    order = sorted(frames)
+    out = np.stack([frames[p] for p in order])
+    log(f"decoded {len(out)} luma frames at {out.shape[2]}x{out.shape[1]}")
+    return out
 
 
 def pack_metadata(

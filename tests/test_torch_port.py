@@ -35,6 +35,8 @@ COPIES = {
     # the shared sources in cova_tpu/csrc: paths and the build differ.
     "codec/__init__.py": ("_DIR = ", "_lib = None"),
     "tracker/host.py": None,
+    "models/bgdet.py": None,
+    "pipeline/naive.py": None,
 }
 
 
@@ -72,7 +74,11 @@ def test_unpack_outputs_np_matches_original():
 
 @pytest.mark.parametrize(
     "rel,name",
-    [("pipeline/compressed.py", "unpack_masks"), ("utils/dataset.py", "pack_metadata")],
+    [
+        ("pipeline/compressed.py", "unpack_masks"),
+        ("utils/dataset.py", "pack_metadata"),
+        ("utils/dataset.py", "decode_luma_halfres"),
+    ],
 )
 def test_copied_function_matches_original(rel, name):
     port = _function_source(REPO / "cova_tpu_torch" / rel, name)
@@ -86,6 +92,9 @@ def test_port_imports_no_jax():
         "import cova_tpu_torch.pipeline.cova, cova_tpu_torch.run_cova\n"
         "import cova_tpu_torch.ops.cuda.cc_kernel, cova_tpu_torch.ops.assignment\n"
         "import cova_tpu_torch.tracker.host, cova_tpu_torch.pipeline.sort_pipeline\n"
+        "import cova_tpu_torch.models.yolov4, cova_tpu_torch.models.darknet_cfg\n"
+        "import cova_tpu_torch.models.bgdet, cova_tpu_torch.pipeline.naive\n"
+        "import cova_tpu_torch.ops.cuda.nms_kernel, cova_tpu_torch.utils.dataset\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cova_tpu'))\n"
         "print(bad)\n"
