@@ -3,15 +3,20 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
-Phases:
+Phases (--kernels-only stops after phase 2):
   0  the card, the software versions;
   1  builds every CUDA kernel of the port from the sources in the
      checkout (the CC kernel and the NMS kernel, one nvcc each, all at
      once), and the port's codec library;
-  2  holds each kernel against its plain PyTorch version on the card:
-     CC labels and the four NMS outputs equal bit for bit;
+  2  holds each kernel against its plain PyTorch version on the card,
+     every case three times: CC labels and the four NMS outputs equal
+     bit for bit; times each kernel at the main path's shapes as device
+     time per launch (a CUDA graph of 100 launches, no host time between
+     them), as the wrapper's time per call (host time included), against
+     its plain version, its bound and the launch floor (a one-element
+     torch op timed as the kernels are);
   3  the all-device compressed stage on a seeded chunk (R=8, T=4), parts
      at F=128, the whole stage at F=16, a small chunk against the CPU;
   4  `CovaPipeline` (host_tracking=False) end to end on a generated
@@ -56,6 +61,9 @@ REPO = pathlib.Path(__file__).resolve().parent
 SEED = 0
 
 # The kernels of the slice: (name, route, source, TPU kernel it replaces).
+# Neither has a one-call PyTorch counterpart (no torch op labels connected
+# components, none runs class-aware greedy NMS with a score filter and a
+# max_out), so their library_ms is null.
 KERNELS = {
     "cc_label": (
         "cuda",
@@ -139,6 +147,94 @@ def phase1_build() -> None:
     log(f"[1] all builds in {time.perf_counter() - t0:.3f} s")
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W), for
+# each kernel's bound: the larger of its bytes (each input read once,
+# each output written once) over the memory rate and its operations over
+# the CUDA cores' float32 rate.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# Operations of one IoU test in csrc/nms_kernel.cu (`iou`): 4 adds, 2
+# mins, 4 maxes, 3 subtractions, 3 multiplies, 1 divide, the compare.
+IOU_OPS = 18
+# 32-bit operations a pixel of the union-find, at most: the mask test,
+# up to four neighbour tests, a union's compares and a find's steps.
+CC_OPS_PER_PIXEL = 10
+# Launches in one timed CUDA graph, and times each check is repeated (a
+# race in the kernel's atomics shows as a difference between repeats).
+GRAPH_LAUNCHES = 100
+REPEATS = 3
+
+
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
+    """Device milliseconds per launch of `fn`: `launches` calls captured
+    in one CUDA graph, so no host time lies between the launches, the
+    graph replayed `replays` times, each replay timed with CUDA events;
+    the median replay over `launches`."""
+    import torch
+
+    fn()  # builds, loads and sets kernel attributes outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def launch_floor_ms() -> float:
+    """Device milliseconds per launch of a one-element torch op, timed as
+    the kernels are (graph_ms): what any launch costs on this card."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    ms = graph_ms(lambda: x.add_(1.0))
+    log(f"[2] launch floor: a one-element torch op, {ms:.5f} ms a launch "
+        f"(graph of {GRAPH_LAUNCHES})")
+    return ms
+
+
+def bound_ms(nbytes: int, ops: int) -> tuple:
+    """(least milliseconds, "bytes" or "operations") for work that moves
+    `nbytes` and does `ops` operations on this card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _timing(fn, plain, nbytes, ops, floor) -> tuple:
+    """Times of one kernel case: device ms a launch (graph), the
+    wrapper's ms a call (one call between two events, host time
+    included), the plain version's ms, and the bound. Returns (record
+    fields, log text)."""
+    dev = graph_ms(fn)
+    call = cuda_ms(fn)
+    plain_ms = cuda_ms(plain)
+    bound, by = bound_ms(nbytes, ops)
+    rec = {"device_ms": dev, "ms": call, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "launch_floor_ms": floor}
+    text = (f"device {dev:.5f} ms a launch (graph of {GRAPH_LAUNCHES}; launch floor "
+            f"{floor:.5f}), wrapper call {call:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.6f} ms by {by} ({nbytes} bytes, {ops} operations), "
+            f"{bound / dev:.2%} of it")
+    return rec, text
+
+
 def _spiral(h: int = 45, w: int = 80):
     import numpy as np
 
@@ -151,10 +247,50 @@ def _spiral(h: int = 45, w: int = 80):
     return mask
 
 
-def phase2_cc() -> dict:
-    """Every CC kernel case against the plain version, labels exactly
-    equal. Returns the JSON record of the kernel (without launches)."""
+def _checkerboard(h: int = 45, w: int = 80):
+    """One component joined only through diagonals."""
     import numpy as np
+
+    r, c = np.indices((h, w))
+    return (r + c) % 2 == 0
+
+
+def _comb(h: int = 45, w: int = 80):
+    """Teeth on every other column, joined only by the bottom row: the
+    comb's label, pixel 0, reaches most teeth through the far end."""
+    import numpy as np
+
+    mask = np.zeros((h, w), bool)
+    mask[:, ::2] = True
+    mask[h - 1, :] = True
+    return mask
+
+
+def _cc_cases() -> list:
+    """(label, masks, timed): the device-tracking path's chunk (B = R*F =
+    1024 frames) at three foreground shares and three grids, timed; then
+    the union-find's edge cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    cases = [(f"B=1024 45x80 p={p}", rng.uniform(size=(1024, 45, 80)) < p, True)
+             for p in (0.05, 0.3, 0.6)]
+    cases.append(("B=1024 46x80 p=0.05", rng.uniform(size=(1024, 46, 80)) < 0.05, True))
+    cases.append(("B=1024 68x120 p=0.3", rng.uniform(size=(1024, 68, 120)) < 0.3, True))
+    for label, m in (("spiral 45x80", _spiral()), ("checkerboard 45x80", _checkerboard()),
+                     ("comb 45x80", _comb()), ("empty 45x80", np.zeros((45, 80), bool)),
+                     ("full 45x80", np.ones((45, 80), bool)),
+                     ("full 68x120", np.ones((68, 120), bool))):
+        cases.append((label, m[None], False))
+    cases.append(("B=64 1x80 p=0.6", rng.uniform(size=(64, 1, 80)) < 0.6, False))
+    cases.append(("B=64 45x1 p=0.6", rng.uniform(size=(64, 45, 1)) < 0.6, False))
+    return cases
+
+
+def phase2_cc(floor: float) -> dict:
+    """Every CC kernel case against the plain version, labels exactly
+    equal, REPEATS times; device times at the path's shapes. Returns the
+    JSON record of the kernel (without launches)."""
     import torch
 
     from cova_tpu_torch.ops.cuda.cc_kernel import (
@@ -162,48 +298,39 @@ def phase2_cc() -> dict:
         connected_components_plain,
     )
 
-    rng = np.random.default_rng(SEED)
-    cases = []
-    for p in (0.05, 0.3, 0.6):
-        cases.append((f"B=1024 45x80 p={p}", rng.uniform(size=(1024, 45, 80)) < p))
-    cases.append(("B=1024 46x80 p=0.05", rng.uniform(size=(1024, 46, 80)) < 0.05))
-    cases.append(("B=1024 68x120 p=0.3", rng.uniform(size=(1024, 68, 120)) < 0.3))
-    cases.append(("spiral 45x80", _spiral()[None]))
-    cases.append(("empty+full 45x80", np.stack([np.zeros((45, 80), bool),
-                                                np.ones((45, 80), bool)])))
     timed = {}
     max_err = 0
-    for label, m in cases:
+    for label, m, time_it in _cc_cases():
         masks = torch.from_numpy(m).cuda()
-        got = connected_components(masks)
         ref = connected_components_plain(masks)
-        torch.cuda.synchronize()
-        if got.dtype != torch.int32 or got.shape != masks.shape:
-            raise AssertionError(f"{label}: bad output {got.dtype} {tuple(got.shape)}")
-        err = int((got.long() - ref.long()).abs().max())
-        max_err = max(max_err, err)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"{label}: kernel labels differ from plain (max {err})")
-        line = f"[2] {label}: labels equal"
-        if masks.shape[0] == 1024:
-            k_ms = cuda_ms(lambda: connected_components(masks))
-            p_ms = cuda_ms(lambda: connected_components_plain(masks))
-            timed[label] = (k_ms, p_ms)
-            line += f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+        for _ in range(REPEATS):
+            got = connected_components(masks)
+            torch.cuda.synchronize()
+            if got.dtype != torch.int32 or got.shape != masks.shape:
+                raise AssertionError(f"{label}: bad output {got.dtype} {tuple(got.shape)}")
+            err = int((got.long() - ref.long()).abs().max()) if got.numel() else 0
+            max_err = max(max_err, err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{label}: kernel labels differ from plain (max {err})")
+        line = f"[2] cc_label {label}: labels equal to plain, {REPEATS} times"
+        if time_it:
+            timed[label], text = _timing(
+                lambda: connected_components(masks),
+                lambda: connected_components_plain(masks),
+                masks.numel() * (1 + 4), masks.numel() * CC_OPS_PER_PIXEL, floor,
+            )
+            line += "; " + text
         log(line)
-    log(f"[2] cc_label launches so far: {connected_components.launches}")
-    k_ms, p_ms = timed["B=1024 45x80 p=0.05"]
     route, source, replaces = KERNELS["cc_label"]
-    return {
-        "name": "cc_label", "route": route, "source": source,
-        "replaces": replaces, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
-    }
+    return {"name": "cc_label", "route": route, "source": source, "replaces": replaces,
+            "max_abs_err": max_err, "library_ms": None,
+            **timed["B=1024 45x80 p=0.05"]}
 
 
-def _nms_case(seed, n, classes, spread=600.0, ties=False, top=1.0):
+def _nms_case(seed, n, classes, spread=600.0, ties=False, top=1.0, ordered=False):
     """Seeded NMS candidates (tests/test_torch_nms.py's generator):
-    (n, 4) ltwh, (n,) scores, (n,) int32 classes."""
+    (n, 4) ltwh, (n,) scores, (n,) int32 classes; `ordered` sorts them by
+    descending score, stably, as the oracle hands them over."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -213,7 +340,11 @@ def _nms_case(seed, n, classes, spread=600.0, ties=False, top=1.0):
     scores = rng.uniform(0, top, n).astype(np.float32)
     if ties:
         scores = (np.round(scores * 8) / 8).astype(np.float32)
-    return ltwh, scores, rng.integers(0, classes, n).astype(np.int32)
+    cls = rng.integers(0, classes, n).astype(np.int32)
+    if ordered:
+        order = np.argsort(-scores, kind="stable")
+        ltwh, scores, cls = ltwh[order], scores[order], cls[order]
+    return ltwh, scores, cls
 
 
 NMS_CASES = {
@@ -224,14 +355,41 @@ NMS_CASES = {
                                            ties=True),
     "N=512 all below 0.25": dict(seed=4, n=512, classes=80, top=0.25),
     "N=40 3 classes": dict(seed=5, n=40, classes=3),
+    # The oracle's input: its top 512, already in stable descending order.
+    "N=512 80 classes, sorted": dict(seed=0, n=512, classes=80, ordered=True),
+    "N=512 80 classes, ties, sorted": dict(seed=2, n=512, classes=80, ties=True,
+                                           ordered=True),
+    "N=512 all zero": dict(seed=6, n=512, classes=80, top=0.0),
+    "N=1024 2 classes, overlap": dict(seed=7, n=1024, classes=2, spread=120.0),
+    "N=33 2 classes, overlap": dict(seed=8, n=33, classes=2, spread=50.0),
+    "N=1": dict(seed=9, n=1, classes=1),
 }
+NMS_MAX_OUT = (1, 8, 64, 512)
 
 
-def phase2_nms() -> dict:
+def _nms_bytes_ops(args, thr, max_out) -> tuple:
+    """Bytes and operations of one NMS call on these inputs: each input
+    read once, each output written once; an IoU test for every pair of
+    alive candidates of one class."""
+    import torch
+
+    ltwh, scores, cls = args
+    b, n = scores.shape
+    nbytes = b * n * (16 + 4 + 4) + b * max_out * (16 + 4 + 4 + 1)
+    pairs = 0
+    for i in range(b):
+        counts = torch.bincount(cls[i][scores[i] > thr].long())
+        pairs += int((counts * (counts - 1) // 2).sum())
+    return nbytes, pairs * IOU_OPS
+
+
+def phase2_nms(floor: float) -> dict:
     """Every NMS case against the plain version on the card, image by
-    image and as one batch, at score thresholds 0.25 and 0.0: the four
-    outputs equal bit for bit. Times the kernel and the plain version at
-    the oracle's shape (one image, N=512). Returns the JSON record of the
+    image and the five unsorted N=512 images as one batch, at score
+    thresholds 0.25 and 0.0 and every max_out of NMS_MAX_OUT: the four
+    outputs equal bit for bit, REPEATS times. Device times at the
+    oracle's shape (one image, N=512, 80 classes, max_out 64), sorted as
+    the oracle hands it over and unsorted. Returns the JSON record of the
     kernel (without launches)."""
     import torch
 
@@ -239,53 +397,54 @@ def phase2_nms() -> dict:
 
     dev = torch.device("cuda")
 
-    def check(label, args, thr):
-        got = nms(*args, 0.2, thr, 64)
-        ref = nms_plain(*args, 0.2, thr, 64)
-        torch.cuda.synchronize()
+    def check(label, args, thr, max_out):
+        ref = nms_plain(*args, 0.2, thr, max_out)
         err = 0.0
-        for g, r, name in zip(got, ref, ("ltwh", "scores", "classes", "valid")):
-            if g.dtype != r.dtype or g.shape != r.shape:
-                raise AssertionError(f"{label}: {name} {g.dtype} {tuple(g.shape)} "
-                                     f"!= {r.dtype} {tuple(r.shape)}")
-            err = max(err, float((g.double() - r.double()).abs().max()))
-            if not torch.equal(g, r):
-                raise AssertionError(f"{label}: kernel {name} differs from plain")
+        for _ in range(REPEATS):
+            got = nms(*args, 0.2, thr, max_out)
+            torch.cuda.synchronize()
+            for g, r, name in zip(got, ref, ("ltwh", "scores", "classes", "valid")):
+                if g.dtype != r.dtype or g.shape != r.shape:
+                    raise AssertionError(f"{label}: {name} {g.dtype} {tuple(g.shape)} "
+                                         f"!= {r.dtype} {tuple(r.shape)}")
+                err = max(err, float((g.double() - r.double()).abs().max()))
+                if not torch.equal(g, r):
+                    raise AssertionError(f"{label}: kernel {name} differs from plain")
         return err, int(ref[3].sum())
 
     max_err = 0.0
-    batch = []
-    for label, kw in NMS_CASES.items():
-        args = [torch.from_numpy(a)[None].to(dev) for a in _nms_case(**kw)]
-        if kw["n"] == 512:
-            batch.append(args)
-        kept = []
+    inputs = {label: [torch.from_numpy(a)[None].to(dev) for a in _nms_case(**kw)]
+              for label, kw in NMS_CASES.items()}
+    for label, args in inputs.items():
+        kept = {}
         for thr in (0.25, 0.0):
-            err, k = check(f"{label} thr={thr}", args, thr)
+            for k in NMS_MAX_OUT:
+                err, kept[thr, k] = check(f"{label} thr={thr} max_out={k}", args, thr, k)
+                max_err = max(max_err, err)
+        log(f"[2] nms {label}: outputs equal to plain at max_out {NMS_MAX_OUT}, "
+            f"{REPEATS} times; kept {kept[0.25, 512]} at score 0.25, "
+            f"{kept[0.0, 512]} at 0.0")
+    batch = [label for label in list(NMS_CASES)[:6] if NMS_CASES[label]["n"] == 512]
+    stacked = [torch.cat(parts) for parts in zip(*(inputs[k] for k in batch))]
+    for thr in (0.25, 0.0):
+        for k in NMS_MAX_OUT:
+            err, _ = check(f"batch of {len(batch)} thr={thr} max_out={k}", stacked, thr, k)
             max_err = max(max_err, err)
-            kept.append(k)
-        log(f"[2] nms {label}: outputs equal, kept {kept[0]} at score 0.25, "
-            f"{kept[1]} at 0.0")
-    stacked = [torch.cat(parts) for parts in zip(*batch)]
-    for thr in (0.25, 0.0):
-        err, k = check(f"batch of {len(batch)} thr={thr}", stacked, thr)
-        max_err = max(max_err, err)
-    log(f"[2] nms batch of {len(batch)} images x 512: outputs equal")
-    args = [torch.from_numpy(a)[None].to(dev) for a in _nms_case(**NMS_CASES["N=512 80 classes"])]
+    log(f"[2] nms batch of {len(batch)} images x 512: outputs equal to plain")
+
     timed = {}
-    for thr in (0.25, 0.0):
-        k_ms = cuda_ms(lambda: nms(*args, 0.2, thr, 64))
-        p_ms = cuda_ms(lambda: nms_plain(*args, 0.2, thr, 64))
-        timed[thr] = (k_ms, p_ms)
-        log(f"[2] nms B=1 N=512 80 classes score {thr}: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms")
-    log(f"[2] nms launches so far: {nms.launches}")
+    for label in ("N=512 80 classes, sorted", "N=512 80 classes"):
+        args = inputs[label]
+        for thr in (0.25, 0.0):
+            timed[label, thr], text = _timing(
+                lambda: nms(*args, 0.2, thr, 64), lambda: nms_plain(*args, 0.2, thr, 64),
+                *_nms_bytes_ops(args, thr, 64), floor,
+            )
+            log(f"[2] nms B=1 {label} score {thr} max_out 64: {text}")
     route, source, replaces = KERNELS["nms"]
-    k_ms, p_ms = timed[0.25]
-    return {
-        "name": "nms", "route": route, "source": source, "replaces": replaces,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-    }
+    return {"name": "nms", "route": route, "source": source, "replaces": replaces,
+            "max_abs_err": max_err, "library_ms": None,
+            **timed["N=512 80 classes, sorted", 0.25]}
 
 
 def _demo_weights(device):
@@ -799,7 +958,21 @@ def phase7_oracle(tmp: pathlib.Path) -> int:
     return launches
 
 
-def main() -> int:
+def _kernel_lines(records) -> list:
+    return [{k: rec[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        "device_ms", "launch_floor_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for rec in records.values()]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 0-2 only: build, check and time the kernels, print "
+                         "their JSON line (launches null) and stop, with no ok line")
+    args = ap.parse_args(argv)
     if not (REPO / "cova_tpu_torch").is_dir() or not (REPO / "cova_tpu").is_dir():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
@@ -813,7 +986,14 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase0_environment()
     phase1_build()
-    records = {"cc_label": phase2_cc(), "nms": phase2_nms()}
+    floor = launch_floor_ms()
+    records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor)}
+    if args.kernels_only:
+        for rec in records.values():
+            rec["launches"] = None
+        print(json.dumps({"kernels": _kernel_lines(records)}))
+        print(smi, flush=True)
+        return 0
     phase3_compressed_stage()
     from cova_tpu_torch.codec import Mp4Demuxer
 
@@ -829,11 +1009,8 @@ def main() -> int:
         phase6_default_pipeline(mp4, samples, tmp, res4)
         records["cc_label"]["launches"] = launches["cc_label"]
         records["nms"]["launches"] = phase7_oracle(tmp)
-    kernels = [{k: rec[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms")} for rec in records.values()]
     log(f"smoke total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": _kernel_lines(records)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -216,7 +216,7 @@ def convert_flax_variables(arrays: dict) -> dict:
     return sd
 
 
-def load_artifact(path, device="cpu"):
+def load_artifact(path, device="cuda"):
     """(model, state_dict, meta) from a committed npz weight artifact; the
     architecture's input channels come from its stored `__meta__`, whose
     `signed_mv` / `use_nnz_channel` tell the caller which metadata

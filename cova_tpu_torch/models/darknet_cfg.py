@@ -164,7 +164,7 @@ class DarknetModel(nn.Module):
 
 
 def create_darknet(cfg_path: str, generator: torch.Generator | None = None,
-                   device="cpu"):
+                   device="cuda"):
     """(model, heads) from a cfg file (or its text), in eval mode on
     `device`, weights drawn from `generator` (seeded with 0 when None)."""
     model = DarknetModel.from_cfg(cfg_path)

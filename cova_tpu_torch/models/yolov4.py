@@ -227,7 +227,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def create_yolov4(num_classes: int = 80, generator: torch.Generator | None = None,
-                  device="cpu") -> YOLOv4:
+                  device="cuda") -> YOLOv4:
     """YOLOv4 in eval mode on `device`, weights drawn from `generator`
     (seeded with 0 when None)."""
     model = YOLOv4(num_classes)
@@ -489,7 +489,7 @@ def make_yolo_detector(
     score_threshold: float = 0.25,
     nms_iou: float = 0.2,
     cfg_path=None,
-    device="cpu",
+    device="cuda",
 ) -> YoloDetector:
     """Build a CovaPipeline-compatible oracle from darknet `.weights` on
     `device`. On CUDA, TF32 is turned off process wide
@@ -503,6 +503,7 @@ def make_yolo_detector(
     from cova_tpu_torch.pipeline.compressed import exact_float32
 
     exact_float32(device)
+    # Built and loaded in host memory, then moved to `device` whole.
     if cfg_path:
         from cova_tpu_torch.models.darknet_cfg import (
             create_darknet,
@@ -510,14 +511,15 @@ def make_yolo_detector(
             postprocess_darknet,
         )
 
-        model, heads = create_darknet(cfg_path)
+        model, heads = create_darknet(cfg_path, device="cpu")
         load_darknet_weights_cfg(model, weights_path)
 
         def post(outs):
             return postprocess_darknet(outs, heads, input_size,
                                        score_threshold=score_threshold, nms_iou=nms_iou)
     else:
-        model = load_darknet_weights(create_yolov4(num_classes), weights_path)
+        model = load_darknet_weights(create_yolov4(num_classes, device="cpu"),
+                                     weights_path)
 
         def post(outs):
             return postprocess(outs, num_classes, input_size,

@@ -6,7 +6,8 @@ with 8-connectivity and returns (B, H, W) int32: each foreground pixel
 holds the linear index of its component's raster-first pixel, background
 holds H*W — the convention of the TPU kernel it replaces
 (cova_tpu/ops/pallas/cc_kernel.py). A CUDA tensor goes to the
-hand-written kernel (csrc/cc_kernel.cu); a CPU tensor goes to
+hand-written kernel (csrc/cc_kernel.cu, a block union-find in shared
+memory, 4 bytes a pixel); a CPU tensor goes to
 `connected_components_plain`. There is no fallback between the two.
 """
 
@@ -19,8 +20,9 @@ import torch.nn.functional as F
 
 from cova_tpu_torch.ops.cuda import _build
 
-# Largest dynamic shared memory one block may use on Hopper (bytes).
-MAX_SMEM_BYTES = 232_448
+# Largest shared memory a frame may take in one block on Hopper (bytes):
+# 227 KB less the block's 8 KB of union queues (csrc/cc_kernel.cu).
+MAX_SMEM_BYTES = 232_448 - 8_192
 
 
 def connected_components_plain(masks: torch.Tensor) -> torch.Tensor:
@@ -81,9 +83,9 @@ def connected_components(masks: torch.Tensor) -> torch.Tensor:
     if not masks.is_contiguous():
         raise ValueError("masks must be contiguous")
     b, h, w = masks.shape
-    if h * w * 5 > MAX_SMEM_BYTES:
+    if h * w * 4 > MAX_SMEM_BYTES:
         raise ValueError(
-            f"a {h}x{w} frame needs {h * w * 5} bytes of shared memory; "
+            f"a {h}x{w} frame needs {h * w * 4} bytes of shared memory; "
             f"the kernel holds at most {MAX_SMEM_BYTES}"
         )
     labels = torch.empty((b, h, w), dtype=torch.int32, device=masks.device)

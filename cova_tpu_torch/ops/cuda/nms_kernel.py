@@ -5,9 +5,10 @@ float32 scores and (B, N) int32 classes and returns, per image, the
 outputs of `cova_tpu_torch.ops.nms.batched_nms`: (B, max_out, 4) boxes,
 (B, max_out) scores, (B, max_out) int32 classes and (B, max_out) bool
 valid flags. A CUDA tensor goes to the hand-written kernel
-(csrc/nms_kernel.cu, one block per image); a CPU tensor goes to
-`nms_plain`, the plain version image by image. There is no fallback
-between the two.
+(csrc/nms_kernel.cu: per image, a suppression bitmask built by a cluster
+of 8 blocks and a one-warp greedy scan that stops at max_out); a CPU
+tensor goes to `nms_plain`, the plain version image by image. There is
+no fallback between the two.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from cova_tpu_torch.ops.cuda import _build
 from cova_tpu_torch.ops.nms import batched_nms
 
-# Candidates one block holds (one thread each).
+# Candidates a block holds (one thread each in its first phase).
 MAX_CANDIDATES = 1024
 
 

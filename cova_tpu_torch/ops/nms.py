@@ -6,7 +6,7 @@ detections (reference: config/dnn/yolov4_b2.txt `nms-iou-threshold=0.2`).
 `batched_nms` works on one image with fixed shapes, exactly as the JAX
 function does: a stable descending sort by score, the same-class IoU
 suppression swept in index order, and the survivors compacted in index
-order. The CUDA kernel that runs it on the card, one block per image, is
+order. The CUDA kernel that runs it on the card, a cluster per image, is
 csrc/nms_kernel.cu behind ops/cuda/nms_kernel.py, which takes this
 function for a CPU tensor.
 """

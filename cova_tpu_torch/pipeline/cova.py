@@ -148,7 +148,7 @@ class CovaPipeline:
         variables=None,
         detector: Optional[Callable] = None,
         log=print,
-        device="cpu",
+        device="cuda",
         _streams=None,
     ):
         if cfg.parallel.num_devices > 1:
@@ -198,7 +198,7 @@ class CovaPipeline:
         cfg: CovaConfig = CovaConfig(),
         variables=None,
         log=print,
-        device="cpu",
+        device="cuda",
     ) -> "CovaPipeline":
         """streams: list of (input_path, output_dir, detector)."""
         return cls(None, None, cfg, variables, None, log, device, _streams=streams)

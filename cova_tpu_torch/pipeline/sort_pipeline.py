@@ -45,7 +45,7 @@ class SortPipeline:
         cfg: CovaConfig = CovaConfig(),
         variables=None,
         log=print,
-        device="cpu",
+        device="cuda",
     ):
         self.demux = Mp4Demuxer(input_path)
         self.cfg = cfg

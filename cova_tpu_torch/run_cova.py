@@ -2,10 +2,11 @@
 
 The counterpart of examples/run_cova.py for the PyTorch port:
 
-    python -m cova_tpu_torch.run_cova VIDEO.mp4 OUTPUT_DIR [--device cuda]
+    python -m cova_tpu_torch.run_cova VIDEO.mp4 OUTPUT_DIR [--device cpu]
         [--max-frames N] [--device-tracking]
 
-The run uses the CovaConfig defaults, so connected components and SORT
+It runs on the card (--device cuda, the default; without one it raises)
+unless --device names another torch device, such as cpu. The run uses the CovaConfig defaults, so connected components and SORT
 run in native host code on the device's bit-packed masks
 (host_tracking=True); --device-tracking runs them on the device instead
 (host_tracking=False, the connected-components CUDA kernel and the
@@ -36,16 +37,21 @@ import pathlib
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("input")
     ap.add_argument("output_dir")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the device stage (cpu on request)")
     ap.add_argument("--max-frames", type=int, default=None,
                     help="cap on frames per GoP range")
     ap.add_argument("--device-tracking", action="store_true",
                     help="run CC + SORT on the device (host_tracking=False)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
 
     from cova_tpu_torch.config import CovaConfig
     from cova_tpu_torch.models.blobnet import load_artifact
@@ -54,7 +60,7 @@ def main(argv=None) -> None:
     ckpt = os.environ.get("COVA_BLOBNET_CKPT") or str(
         REPO / "artifacts" / "blobnet_demo.npz"
     )
-    _, variables, wmeta = load_artifact(ckpt)
+    _, variables, wmeta = load_artifact(ckpt, args.device)
     print(f"loaded BlobNet weights from {ckpt} ({wmeta or '3ch'})")
 
     # Optional oracle: COVA_YOLO_WEIGHTS=yolov4.weights (darknet);

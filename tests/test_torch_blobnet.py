@@ -64,7 +64,7 @@ def test_conversion_fills_every_parameter_and_meta_sets_channels():
     np.testing.assert_array_equal(
         sd["dec_convt.0.weight"].numpy(), k[::-1, ::-1].transpose(2, 3, 0, 1)
     )
-    _, _, meta = tbn.load_artifact(ARTIFACTS / "blobnet_demo.npz")
+    _, _, meta = tbn.load_artifact(ARTIFACTS / "blobnet_demo.npz", "cpu")
     assert meta["in_channels"] == 4 and meta["signed_mv"] and meta["use_nnz_channel"]
 
 

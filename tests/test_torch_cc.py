@@ -1,16 +1,19 @@
 """Connected components in the PyTorch port against the JAX package.
 
 On the CPU the wrapper runs its plain version, which must give the TPU
-kernel's labels exactly (the Pallas kernel runs in interpret mode here);
-`mask_to_boxes` must give the JAX op's boxes exactly. The CUDA kernel
-itself is held against the plain version by the tests marked `cuda`,
-which skip without a card (run them there with
+kernel's labels exactly (the Pallas kernel runs in interpret mode here)
+and scipy's 8-connected labels mapped to each component's minimum raster
+index (the convention the CUDA union-find relies on); `mask_to_boxes`
+must give the JAX op's boxes exactly. The CUDA kernel itself is held
+against the plain version, three launches a case, by the tests marked
+`cuda`, which skip without a card (run them there with
 `python -m pytest tests/test_torch_cc.py -m cuda`)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.ndimage
 import torch
 
 from cova_tpu.ops.cc import mask_to_boxes as jax_mask_to_boxes
@@ -39,6 +42,21 @@ def _random(shape, p, seed):
     return np.random.default_rng(seed).uniform(size=shape) < p
 
 
+def _checkerboard(h=45, w=80):
+    """One component joined only through diagonals."""
+    r, c = np.indices((h, w))
+    return (r + c) % 2 == 0
+
+
+def _comb(h=45, w=80):
+    """Teeth on every other column joined only by the bottom row: the
+    comb's label, pixel 0, reaches most teeth through the far end."""
+    mask = np.zeros((h, w), bool)
+    mask[:, ::2] = True
+    mask[h - 1, :] = True
+    return mask
+
+
 CASES = {
     "random_45x80_p0.05": lambda: _random((4, 45, 80), 0.05, 0),
     "random_45x80_p0.3": lambda: _random((4, 45, 80), 0.3, 1),
@@ -47,6 +65,43 @@ CASES = {
     "spiral": lambda: _spiral()[None],
     "empty_and_full": lambda: np.stack([np.zeros((45, 80), bool), np.ones((45, 80), bool)]),
 }
+
+
+# The union-find kernel's own edge cases: chains only through diagonals,
+# components rooted far from most of their pixels, single rows and columns.
+EDGE_CASES = {
+    **{f"random_{h}x{w}_p{p}": (lambda h=h, w=w, p=p, s=s: _random((2, h, w), p, s))
+       for s, (h, w, p) in enumerate([(45, 80, 0.05), (45, 80, 0.3), (45, 80, 0.6),
+                                      (68, 120, 0.05), (68, 120, 0.3), (68, 120, 0.6)])},
+    "checkerboard": lambda: _checkerboard()[None],
+    "comb": lambda: _comb()[None],
+    "row_1x80": lambda: _random((4, 1, 80), 0.6, 21),
+    "column_45x1": lambda: _random((4, 45, 1), 0.6, 22),
+    "full_68x120": lambda: np.ones((1, 68, 120), bool),
+}
+
+
+def _min_root_labels(masks):
+    """scipy's 8-connected labelling, each component relabelled with its
+    minimum raster index; background H*W."""
+    out = np.empty(masks.shape, np.int32)
+    for b, m in enumerate(masks):
+        lab, k = scipy.ndimage.label(m, structure=np.ones((3, 3)))
+        flat = lab.reshape(-1)
+        first = np.full(k + 1, m.size, np.int64)
+        np.minimum.at(first, flat, np.arange(flat.size))
+        first[0] = m.size
+        out[b] = first[lab]
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_plain_labels_are_min_roots(case):
+    """The convention the union-find kernel relies on: the label is the
+    component's minimum raster index (scipy.ndimage.label, 8-connected)."""
+    masks = EDGE_CASES[case]()
+    got = connected_components(torch.from_numpy(masks)).numpy()
+    np.testing.assert_array_equal(got, _min_root_labels(masks))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -96,14 +151,27 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(EDGE_CASES))
 def test_cuda_kernel_matches_plain(cuda_device, case):
-    masks = torch.from_numpy(CASES[case]()).to(cuda_device)
-    before = connected_components.launches
-    got = connected_components(masks)
-    torch.cuda.synchronize()
-    assert connected_components.launches == before + 1
-    assert torch.equal(got, connected_components_plain(masks))
+    """Three launches, each equal to the plain labels: a race in the
+    union-find's atomics would show as a difference between them."""
+    masks = torch.from_numpy({**CASES, **EDGE_CASES}[case]()).to(cuda_device)
+    ref = connected_components_plain(masks)
+    for _ in range(3):
+        before = connected_components.launches
+        got = connected_components(masks)
+        torch.cuda.synchronize()
+        assert connected_components.launches == before + 1
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_at_chunk_size(cuda_device):
+    """A whole device-tracking chunk (B = R*F = 1024 frames) at 68x120."""
+    masks = torch.from_numpy(_random((1024, 68, 120), 0.3, 23)).to(cuda_device)
+    ref = connected_components_plain(masks)
+    for _ in range(3):
+        assert torch.equal(connected_components(masks), ref)
 
 
 @pytest.mark.cuda

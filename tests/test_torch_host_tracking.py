@@ -87,7 +87,7 @@ def _steps(name, h, w):
     """(chunk, cfg, torch masks, torch probs, JAX masks, JAX probs) for
     one artifact on a seeded R=2, F=8 chunk."""
     path = ARTIFACTS / f"{name}.npz"
-    model, _, meta = load_artifact(path)
+    model, _, meta = load_artifact(path, "cpu")
     jmodel, jvars, _ = jax_load_artifact(str(path))
     cfg_t, cfg_j = _cfg(tcfg, meta), _cfg(jcfg, meta)
     r, f, t = 2, 8, cfg_t.video.timestep
@@ -134,7 +134,7 @@ def test_unpack_masks_inverts_pack():
 
 
 def test_run_chunk_masks_shape():
-    model, _, meta = load_artifact(SYNTH)
+    model, _, meta = load_artifact(SYNTH, "cpu")
     cfg = _cfg(tcfg, meta)
     stage = tcomp.CompressedStage(model, cfg, 2, "cpu")
     chunk = _wire_chunk(np.random.default_rng(1), 2, 8 + 3, 45, 80)
@@ -171,11 +171,12 @@ def _csvs(out_dir):
 def _run_both(mp4, tmp_path, num_ranges, batch_frames):
     """The port's and JAX's CovaPipeline with the synth weights on one
     input; returns (torch result, JAX result), CSVs under tmp_path."""
-    _, sd, meta = load_artifact(SYNTH)
+    _, sd, meta = load_artifact(SYNTH, "cpu")
     _, jvars, _ = jax_load_artifact(str(SYNTH))
     cfg_t = _cfg(tcfg, meta, num_ranges, batch_frames)
     assert cfg_t.compressed.host_tracking  # the default path
-    res = CovaPipeline(mp4, str(tmp_path / "torch"), cfg_t, sd, log=lambda *_: None).run()
+    res = CovaPipeline(mp4, str(tmp_path / "torch"), cfg_t, sd, log=lambda *_: None,
+                       device="cpu").run()
     jres = JaxCovaPipeline(
         mp4, str(tmp_path / "jax"), _cfg(jcfg, meta, num_ranges, batch_frames), jvars,
         log=lambda *_: None,
@@ -228,7 +229,7 @@ def test_host_tracking_synth_bframes_match_jax(tmp_path):
 
 def test_multi_stream_matches_solo_and_jax(paff_clips, tmp_path):
     a, b = paff_clips[(80, 46, 300, 30)], paff_clips[(80, 46, 240, 16)]
-    _, sd, meta = load_artifact(SYNTH)
+    _, sd, meta = load_artifact(SYNTH, "cpu")
     _, jvars, _ = jax_load_artifact(str(SYNTH))
     cfg_t, cfg_j = _cfg(tcfg, meta, 2, 64), _cfg(jcfg, meta, 2, 64)
     quiet = dict(log=lambda *_: None)
@@ -236,12 +237,12 @@ def test_multi_stream_matches_solo_and_jax(paff_clips, tmp_path):
     solo = {}
     for name, path in (("a", a), ("b", b)):
         out = tmp_path / f"solo_{name}"
-        res = CovaPipeline(path, str(out), cfg_t, sd, **quiet).run()
+        res = CovaPipeline(path, str(out), cfg_t, sd, device="cpu", **quiet).run()
         assert res.dead_tracks > 0
         solo[name] = _csvs(out)
 
     streams = [(a, str(tmp_path / "multi_a"), None), (b, str(tmp_path / "multi_b"), None)]
-    multi = CovaPipeline.multi(streams, cfg_t, sd, **quiet)
+    multi = CovaPipeline.multi(streams, cfg_t, sd, device="cpu", **quiet)
     assert multi.num_ranges == 4  # one device batch across the streams
     res = multi.run()
     jstreams = [(a, str(tmp_path / "jax_a"), None), (b, str(tmp_path / "jax_b"), None)]
@@ -259,4 +260,4 @@ def test_multi_stream_mixed_grids_rejected(paff_clips, tmp_path):
         (paff_clips[(80, 46, 300, 30)], str(tmp_path / "b"), None),
     ]
     with pytest.raises(ValueError, match="one MB grid"):
-        CovaPipeline.multi(streams, tcfg.CovaConfig())
+        CovaPipeline.multi(streams, tcfg.CovaConfig(), device="cpu")

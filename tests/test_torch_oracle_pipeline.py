@@ -99,14 +99,14 @@ def _bg():
 
 
 def test_full_pipeline_with_bgdet_matches_jax(synth_video, pixel_decoder, tmp_path):
-    _, sd, meta = load_artifact(SYNTH)
+    _, sd, meta = load_artifact(SYNTH, "cpu")
     _, jvars, _ = jax_load_artifact(str(SYNTH))
     quiet = dict(log=lambda *_: None)
     res = tcova.CovaPipeline(
         synth_video, str(tmp_path / "torch"), _cfg(tcfg, meta), sd,
         detector=tbg.StaticBackgroundDetector(tbg.load_background(
             ARTIFACTS / "synth_bg.npy"), bus_area=BUS_AREA),
-        **quiet,
+        device="cpu", **quiet,
     ).run()
     jres = JaxCovaPipeline(
         synth_video, str(tmp_path / "jax"), _cfg(jcfg, meta), jvars,
@@ -146,10 +146,11 @@ def test_build_background_matches_jax(synth_video, pixel_decoder, tmp_path):
 
 
 def test_full_run_refuses_stub_decoder(synth_video, tmp_path):
-    _, sd, meta = load_artifact(SYNTH)
+    _, sd, meta = load_artifact(SYNTH, "cpu")
     pipe = tcova.CovaPipeline(
         synth_video, str(tmp_path / "out"), _cfg(tcfg, meta), sd,
         detector=tbg.StaticBackgroundDetector(_bg()), log=lambda *_: None,
+        device="cpu",
     )
     with pytest.raises(RuntimeError, match="needs the selective pixel decoder"):
         pipe.run()
@@ -199,7 +200,7 @@ def test_run_cova_cli_with_yolo(synth_video, tmp_path, monkeypatch, capsys, deco
 
     cfg = tmp_path / "tiny.cfg"
     cfg.write_text(TINY_CFG)
-    model, _ = create_darknet(str(cfg))
+    model, _ = create_darknet(str(cfg), device="cpu")
     total = sum(p.numel() for k, p in model.state_dict().items()
                 if not k.endswith("num_batches_tracked"))
     weights = tmp_path / "tiny.weights"

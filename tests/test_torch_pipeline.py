@@ -77,7 +77,7 @@ def test_compressed_stage_step_packed_bytes_match_jax():
     ts0 = np.array([3, 10], np.int32)
     nwin = np.array([f, 7], np.int32)  # range 1 is short: its tail must not touch SORT
 
-    model, _, _ = load_artifact(SYNTH)
+    model, _, _ = load_artifact(SYNTH, "cpu")
     st, packed, masks, boxes = compressed_stage_step(
         model, cfg_t, torch.from_numpy(chunk), sort_init(64, r, "cpu"),
         torch.from_numpy(ts0), nwin=torch.from_numpy(nwin),
@@ -154,10 +154,10 @@ def _assert_csvs_match(got_dir, ref_dir):
 )
 def test_pipeline_csvs_match_jax(paff_clips, tmp_path, clip, num_ranges, batch_frames):
     mp4 = str(paff_clips[clip])
-    _, sd, _ = load_artifact(SYNTH)
+    _, sd, _ = load_artifact(SYNTH, "cpu")
     res = CovaPipeline(
         mp4, str(tmp_path / "torch"), _cfg(tcfg, num_ranges, batch_frames), sd,
-        log=lambda *_: None,
+        log=lambda *_: None, device="cpu",
     ).run()
     _, jvars, _ = jax_load_artifact(str(SYNTH))
     jres = JaxCovaPipeline(
@@ -193,9 +193,9 @@ def test_unported_modes_raise(paff_clips, tmp_path):
     host = dataclasses.replace(
         cfg, compressed=dataclasses.replace(cfg.compressed, host_tracking=True)
     )
-    assert CovaPipeline(mp4, str(tmp_path / "a"), host).cfg.compressed.host_tracking
+    assert CovaPipeline(mp4, str(tmp_path / "a"), host, device="cpu").cfg.compressed.host_tracking
     multi = dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(num_devices=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CovaPipeline(mp4, str(tmp_path / "b"), multi)
+        CovaPipeline(mp4, str(tmp_path / "b"), multi, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CovaPipeline.multi([(mp4, str(tmp_path / "c"), None)], multi)
+        CovaPipeline.multi([(mp4, str(tmp_path / "c"), None)], multi, device="cpu")

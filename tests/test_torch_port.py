@@ -120,6 +120,36 @@ def test_port_sources_do_not_name_jax():
                 assert n.split(".")[0] not in ("jax", "jaxlib", "flax", "cova_tpu"), (path, n)
 
 
+ENTRY_POINTS = [
+    ("pipeline.cova", "CovaPipeline.__init__"),
+    ("pipeline.cova", "CovaPipeline.multi"),
+    ("pipeline.sort_pipeline", "SortPipeline.__init__"),
+    ("models.yolov4", "make_yolo_detector"),
+    ("models.yolov4", "create_yolov4"),
+    ("models.darknet_cfg", "create_darknet"),
+    ("models.blobnet", "load_artifact"),
+]
+
+
+@pytest.mark.parametrize("module,name", ENTRY_POINTS)
+def test_entry_point_defaults_to_the_card(module, name):
+    """The card is the default; the CPU is asked for (as these tests do)."""
+    import importlib
+    import inspect
+
+    obj = importlib.import_module(f"cova_tpu_torch.{module}")
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    assert inspect.signature(obj).parameters["device"].default == "cuda"
+
+
+def test_run_cova_defaults_to_the_card():
+    from cova_tpu_torch import run_cova
+
+    assert run_cova.parser().parse_args(["in.mp4", "out"]).device == "cuda"
+    assert run_cova.parser().parse_args(["in.mp4", "out", "--device", "cpu"]).device == "cpu"
+
+
 def _smoke(cwd):
     return subprocess.run(
         [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True,

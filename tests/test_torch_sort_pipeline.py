@@ -58,10 +58,11 @@ def test_sort_pipeline_csv_matches_jax(tmp_path):
     _, jvars = jbn.create_blobnet(jax.random.PRNGKey(0))
     npz = tmp_path / "init.npz"
     jbn.save_params_npz(str(npz), jvars)
-    _, sd, _ = tbn.load_artifact(npz)
+    _, sd, _ = tbn.load_artifact(npz, "cpu")
 
     quiet = dict(log=lambda *_: None)
-    res = SortPipeline(mp4, str(tmp_path / "torch.csv"), _sort_cfg(tcfg), sd, **quiet).run()
+    res = SortPipeline(mp4, str(tmp_path / "torch.csv"), _sort_cfg(tcfg), sd,
+                       device="cpu", **quiet).run()
     jres = JaxSortPipeline(
         mp4, str(tmp_path / "jax.csv"), _sort_cfg(jcfg), jvars, **quiet
     ).run()

@@ -183,7 +183,7 @@ def test_layer_order_matches_cfg():
 
 def test_loader_matches_numpy_golden_and_jax(golden):
     x0, ref, path, _, jheads = golden
-    model = ty.load_darknet_weights(ty.create_yolov4(80), path)
+    model = ty.load_darknet_weights(ty.create_yolov4(80, device="cpu"), path)
     got = _heads_np(model(torch.from_numpy(x0[None])))
     for ours, r, j, name in zip(got, ref, jheads, ("p3", "p4", "p5")):
         assert ours[0].shape == r.shape == j.shape, name
@@ -193,7 +193,7 @@ def test_loader_matches_numpy_golden_and_jax(golden):
 
 def test_convert_flax_variables_equals_loader(golden):
     x0, _, path, jvars, _ = golden
-    loaded = ty.load_darknet_weights(ty.create_yolov4(80), path)
+    loaded = ty.load_darknet_weights(ty.create_yolov4(80, device="cpu"), path)
     sd = ty.convert_flax_variables(jax.tree_util.tree_map(np.asarray, jvars))
     ref = loaded.state_dict()
     assert sorted(sd) == sorted(ref)
@@ -307,7 +307,7 @@ def test_make_yolo_detector_matches_jax(tmp_path, monkeypatch):
     # overwrites; the shape-only structure skips the 25 s draw.
     monkeypatch.setattr(jy, "create_yolov4", lambda rng, nc, size: _jax_yolov4(nc))
     kw = dict(num_classes=NC, input_size=S, score_threshold=0.0)
-    det = ty.make_yolo_detector(path, **kw)
+    det = ty.make_yolo_detector(path, device="cpu", **kw)
     jdet = jy.make_yolo_detector(path, **kw)
     rng = np.random.default_rng(5)
     h, w = 96, 128
@@ -331,7 +331,7 @@ def test_make_yolo_detector_matches_jax(tmp_path, monkeypatch):
 
 
 def test_cfg_executor_matches_hand_model(tmp_path):
-    model_c, heads = tdk.create_darknet(str(CFG))
+    model_c, heads = tdk.create_darknet(str(CFG), device="cpu")
     model_h = ty.YOLOv4(80)
     total = _total_floats(model_c)
     assert total == _total_floats(model_h)
@@ -350,7 +350,7 @@ def test_cfg_executor_matches_hand_model(tmp_path):
     assert all(h.classes == 80 for h in heads)
 
     # The oracle built through the cfg gives the hand model's detections.
-    kw = dict(input_size=S, score_threshold=0.0)
+    kw = dict(input_size=S, score_threshold=0.0, device="cpu")
     y, u, v = _frame(np.random.default_rng(2), 96, 128)
     by_cfg = ty.make_yolo_detector(path, cfg_path=str(CFG), **kw)([(0.5, y, u, v)])
     assert by_cfg == ty.make_yolo_detector(path, **kw)([(0.5, y, u, v)])
@@ -398,7 +398,7 @@ def test_parser_handles_tiny_variant_features(tmp_path):
     """Grouped routes (yolov4-tiny) and an explicit maxpool stride on an
     odd size, where Flax's "SAME" pads only after: equal to JAX's
     executor on the same weights."""
-    model, (head,) = tdk.create_darknet(TINY_CFG)
+    model, (head,) = tdk.create_darknet(TINY_CFG, device="cpu")
     total = _total_floats(model)
     path = _synthetic_file(tmp_path, total, seed=3)
     tdk.load_darknet_weights_cfg(model, path)
