@@ -8,11 +8,12 @@ Run from the root of a checkout, with no arguments:
 Phases (--kernels-only stops after phase 2):
   0  the card, the software versions;
   1  builds every CUDA kernel of the port from the sources in the
-     checkout (the CC kernel and the NMS kernel, one nvcc each, all at
-     once), and the port's codec library;
+     checkout (the CC, NMS and MOG2 kernels, one nvcc each, all at once),
+     and the port's codec library;
   2  holds each kernel against its plain PyTorch version on the card,
-     every case three times: CC labels and the four NMS outputs equal
-     bit for bit; times each kernel at the main path's shapes as device
+     every case three times: CC labels, the four NMS outputs and the MOG2
+     foreground and state equal bit for bit; times each kernel at the
+     main path's shapes as device
      time per launch (a CUDA graph of 100 launches, no host time between
      them), as the wrapper's time per call (host time included), against
      its plain version, its bound and the launch floor (a one-element
@@ -34,6 +35,14 @@ Phases (--kernels-only stops after phase 2):
      CPU, and the cfg-built network against the hand-written one. (The
      port's codec has no pixel decoder, so the oracle is driven through
      its own entry point rather than through the pipeline.)
+  8  BlobNet training at full width: MOG2 labels through `generate_labels`
+     on the card (512 frames at 368x640, counting K6's launches) equal to
+     the plain version's, their time a frame split into upload, K6,
+     morphology, the copy to the host and the host's hole filling; the
+     PAFF clip's metadata windows paired with them; `train_blobnet` for
+     two epochs from the demo artifact's weights; the first steps again
+     on the CPU (dropout 0), losses within LOSS_TOL; the trained weights
+     saved in the Flax layout, loaded back and run through a masks step.
 Every phase raises on failure; nothing falls back to the CPU. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -60,10 +69,11 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent
 SEED = 0
 
-# The kernels of the slice: (name, route, source, TPU kernel it replaces).
-# Neither has a one-call PyTorch counterpart (no torch op labels connected
+# The kernels of the port: (name, route, source, TPU kernel it replaces).
+# None has a one-call PyTorch counterpart (no torch op labels connected
 # components, none runs class-aware greedy NMS with a score filter and a
-# max_out), so their library_ms is null.
+# max_out, none runs a Gaussian-mixture background model), so their
+# library_ms is null.
 KERNELS = {
     "cc_label": (
         "cuda",
@@ -75,6 +85,12 @@ KERNELS = {
         "cuda",
         "cova_tpu_torch/csrc/nms_kernel.cu",
         "cova_tpu/ops/nms.py:47",
+    ),
+    # No Pallas original: the lax.scan of the MOG2 step XLA ran on the TPU.
+    "mog2": (
+        "cuda",
+        "cova_tpu_torch/csrc/mog2_kernel.cu",
+        "cova_tpu/utils/mog.py:30",
     ),
 }
 
@@ -159,6 +175,13 @@ IOU_OPS = 18
 # 32-bit operations a pixel of the union-find, at most: the mask test,
 # up to four neighbour tests, a union's compares and a find's steps.
 CC_OPS_PER_PIXEL = 10
+# Operations a pixel and frame of csrc/mog2_kernel.cu, a division as one:
+# matching 4 x 8 (subtract, square, threshold product, compare, floor,
+# divide, select, argmin compare) and 3 ors, weights 4 x 3, the owner's
+# update 8, clipping 8, the weakest 6, the restart 3, normalizing 7, the
+# ranks 12, the sorted weights 16, the running sum and count 11, the
+# owner's rank 4, the verdict 2.
+MOG2_OPS_PER_PIXEL_FRAME = 124
 # Launches in one timed CUDA graph, and times each check is repeated (a
 # race in the kernel's atomics shows as a difference between repeats).
 GRAPH_LAUNCHES = 100
@@ -445,6 +468,117 @@ def phase2_nms(floor: float) -> dict:
     return {"name": "nms", "route": route, "source": source, "replaces": replaces,
             "max_abs_err": max_err, "library_ms": None,
             **timed["N=512 80 classes, sorted", 0.25]}
+
+
+def _luma_frames(f: int, h: int, w: int, seed: int):
+    """f frames of (h, w) u8 luma: the synth scene's background
+    (artifacts/synth_bg.npy, 640x360) padded by reflection to (h, w), seeded
+    noise of +-6 a frame, and four bright rectangles of seeded size, start
+    and speed moving across it."""
+    import numpy as np
+
+    bg = np.load(REPO / "artifacts" / "synth_bg.npy").astype(np.int16)
+    pad = ((0, max(h - bg.shape[0], 0)), (0, max(w - bg.shape[1], 0)))
+    bg = np.pad(bg, pad, mode="reflect")[:h, :w]
+    rng = np.random.default_rng(seed)
+    frames = np.repeat(bg[None], f, axis=0) + rng.integers(-6, 7, size=(f, h, w), dtype=np.int16)
+    for _ in range(4):
+        rh, rw = int(rng.integers(h // 12, h // 4)), int(rng.integers(w // 12, w // 4))
+        top, left = int(rng.integers(0, h - rh)), int(rng.integers(0, w))
+        speed, value = int(rng.integers(2, 8)), int(rng.integers(200, 256))
+        for i in range(f):
+            x = (left + i * speed) % max(w - rw, 1)
+            frames[i, top : top + rh, x : x + rw] = value
+    return np.clip(frames, 0, 255).astype(np.uint8)
+
+
+MOG2_CHUNK = 256
+
+
+def _mog2_cases() -> list:
+    """(label, frames (F, H, W) u8 on the card, the state to start from,
+    timed): 256-frame chunks at 360x640 (720p at half resolution) and
+    540x960 (1080p), from a fresh state and from the state an earlier
+    chunk of the same sequence left (computed by the plain version); one
+    frame; odd sizes; a constant sequence, where all weights tie."""
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk_plain, mog2_init
+
+    cases = []
+    for h, w in ((360, 640), (540, 960)):
+        seq = torch.from_numpy(_luma_frames(2 * MOG2_CHUNK, h, w, SEED)).cuda()
+        first, second = seq[:MOG2_CHUNK].contiguous(), seq[MOG2_CHUNK:].contiguous()
+        fresh = mog2_init(first[0])
+        carried = [t.clone() for t in fresh]
+        mog2_chunk_plain(first, *carried)
+        cases.append((f"{h}x{w} F={MOG2_CHUNK} fresh", first, fresh, True))
+        cases.append((f"{h}x{w} F={MOG2_CHUNK} carried", second, carried, True))
+    for label, frames in (
+        ("360x640 F=1", _luma_frames(1, 360, 640, SEED + 1)),
+        ("odd 45x81 F=33", _luma_frames(33, 45, 81, SEED + 2)),
+        ("odd 361x639 F=40", _luma_frames(40, 361, 639, SEED + 3)),
+        ("constant 360x640 F=32", np.full((32, 360, 640), 77, np.uint8)),
+    ):
+        frames = torch.from_numpy(frames).cuda()
+        cases.append((label, frames, mog2_init(frames[0]), False))
+    return cases
+
+
+def phase2_mog2(floor: float) -> dict:
+    """Every MOG2 case against the plain version on the card: the
+    foreground and the three state arrays equal bit for bit, REPEATS
+    times from the same state. Device times of the 256-frame chunks, each
+    launch restoring the state it mutates (three copies, timed alone
+    too). Returns the JSON record of the kernel (without launches)."""
+    import torch
+
+    from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk, mog2_chunk_plain
+
+    timed = {}
+    max_err = 0.0
+    for label, frames, state0, time_it in _mog2_cases():
+        ref_state = [t.clone() for t in state0]
+        ref = mog2_chunk_plain(frames, *ref_state)
+        for _ in range(REPEATS):
+            state = [t.clone() for t in state0]
+            got = mog2_chunk(frames, *state)
+            torch.cuda.synchronize()
+            if got.dtype != torch.bool or got.shape != frames.shape:
+                raise AssertionError(f"{label}: bad output {got.dtype} {tuple(got.shape)}")
+            for g, r, name in zip([got, *state], [ref, *ref_state],
+                                  ("fg", "weight", "mean", "var")):
+                max_err = max(max_err, float((g.double() - r.double()).abs().max()))
+                if not torch.equal(g, r):
+                    raise AssertionError(f"{label}: kernel {name} differs from plain")
+        line = (f"[2] mog2 {label}: foreground and state equal to plain, {REPEATS} times; "
+                f"{float(ref.float().mean()):.4f} of pixels foreground")
+        if time_it:
+            state = [t.clone() for t in state0]
+
+            def restore():
+                for dst, src in zip(state, state0):
+                    dst.copy_(src)
+
+            def kernel():
+                restore()
+                return mog2_chunk(frames, *state)
+
+            def plain():
+                restore()
+                return mog2_chunk_plain(frames, *state)
+
+            f, h, w = frames.shape
+            nbytes = 2 * f * h * w + 2 * 3 * h * w * 4 * 4
+            timed[label], text = _timing(kernel, plain, nbytes,
+                                         f * h * w * MOG2_OPS_PER_PIXEL_FRAME, floor)
+            line += f"; {text}; the state's restore alone {graph_ms(restore):.5f} ms"
+        log(line)
+    route, source, replaces = KERNELS["mog2"]
+    return {"name": "mog2", "route": route, "source": source, "replaces": replaces,
+            "max_abs_err": max_err, "library_ms": None,
+            **timed[f"360x640 F={MOG2_CHUNK} fresh"]}
 
 
 def _demo_weights(device):
@@ -958,6 +1092,217 @@ def phase7_oracle(tmp: pathlib.Path) -> int:
     return launches
 
 
+PHASE8_FRAMES = 512
+PHASE8_EPOCHS = 2
+PHASE8_CPU_STEPS = 4
+# Card against CPU, the first PHASE8_CPU_STEPS steps with dropout 0 and
+# TF32 off, each step replayed on the CPU from the card's weights and
+# Adam state: the loss is on a 0-100 scale, and cuDNN sums the
+# convolutions in another order than the CPU, which moves it by about
+# 1e-5. (Run apart, the two drift, as phase 8 prints: Adam moves every
+# weight whose gradient lies at rounding-noise level by about lr a step,
+# either way.)
+LOSS_TOL = 1e-3
+
+
+def _labels_timed(luma, plain: bool):
+    """generate_labels' loop on the card, each part timed: the chunk's
+    upload, MOG2 (K6, or its plain version) and the morphology (CUDA
+    events), the copy to the host and the host's hole filling (host
+    clock). Returns (labels, milliseconds a frame of each part)."""
+    import numpy as np
+    import scipy.ndimage
+    import torch
+
+    from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk_plain, mog2_init
+    from cova_tpu_torch.utils.mog import _StatefulMog2, morph_close_open
+
+    ms = dict.fromkeys(("upload", "mog2", "morphology", "copy", "fill"), 0.0)
+    mog = _StatefulMog2()
+    out = []
+    for start in range(0, len(luma), MOG2_CHUNK):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        part = torch.from_numpy(np.ascontiguousarray(luma[start : start + MOG2_CHUNK])).cuda()
+        ev[1].record()
+        if plain:
+            if mog.state is None:
+                mog.state = mog2_init(part[0])
+            fg = mog2_chunk_plain(part, *mog.state)
+        else:
+            fg = mog.run(part)
+        ev[2].record()
+        fg = morph_close_open(fg)
+        ev[3].record()
+        ev[3].synchronize()
+        t0 = time.perf_counter()
+        fg_np = fg.cpu().numpy()
+        t1 = time.perf_counter()
+        out.extend(scipy.ndimage.binary_fill_holes(m)[::8, ::8] for m in fg_np)
+        t2 = time.perf_counter()
+        for key, (a, b) in (("upload", (0, 1)), ("mog2", (1, 2)), ("morphology", (2, 3))):
+            ms[key] += ev[a].elapsed_time(ev[b])
+        ms["copy"] += (t1 - t0) * 1e3
+        ms["fill"] += (t2 - t1) * 1e3
+    return np.stack(out).astype(np.uint8), {k: v / len(luma) for k, v in ms.items()}
+
+
+def _paff_windows(mp4, n, timestep=4):
+    """The PAFF clip's first n samples in display order, entropy-decoded
+    with signed MVs, packed with the nnz channel (the shipped contract)
+    and slid as build_training_set slides (stride T, newest first).
+    Returns (windows (N, T, H, W, 4) u8, the window starts)."""
+    import numpy as np
+
+    from cova_tpu_torch.codec import Mp4Demuxer
+    from cova_tpu_torch.utils.dataset import pack_metadata
+
+    demux = Mp4Demuxer(str(mp4))
+    order = demux.display_order(0, n)
+    meta = demux.entropy_decode_indices(order, threads=8, signed_mv=True)
+    frames = pack_metadata(meta, use_nnz=True, signed_mv=True)
+    starts = np.arange(0, len(frames) - timestep + 1, timestep)
+    idx = starts[:, None] + np.arange(timestep - 1, -1, -1)[None, :]
+    return frames[idx], starts
+
+
+def phase8_training(mp4, tmp: pathlib.Path) -> int:
+    """BlobNet training on the card at full width. Returns K6's launches
+    in the labels' run."""
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.models.blobnet import (
+        BlobNet,
+        BlobNetConfig,
+        load_artifact,
+        save_params_npz,
+    )
+    from cova_tpu_torch.models.train_blobnet import make_adam, make_train_step, train_blobnet
+    from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk
+    from cova_tpu_torch.pipeline.compressed import compressed_masks_step
+    from cova_tpu_torch.utils.dataset import ArrayDataset
+    from cova_tpu_torch.utils.mog import generate_labels
+
+    # Labels: MOG2 on the card over 512 frames at 368x640 (the PAFF clip's
+    # 46x80 grid at half resolution), against the plain version's.
+    t0 = time.perf_counter()
+    luma = _luma_frames(PHASE8_FRAMES, 368, 640, SEED + 8)
+    log(f"[8] {PHASE8_FRAMES} luma frames 368x640 made in {time.perf_counter() - t0:.3f} s")
+    generate_labels(luma[:8], device="cuda")  # warm-up: cuDNN pools, the library
+    torch.cuda.synchronize()
+    mog2_chunk.launches = 0
+    t0 = time.perf_counter()
+    labels = generate_labels(luma, device="cuda")
+    dt = time.perf_counter() - t0
+    launches = mog2_chunk.launches
+    if launches != -(-PHASE8_FRAMES // MOG2_CHUNK):
+        raise AssertionError(f"mog2 launched {launches} times for {PHASE8_FRAMES} frames")
+    if labels.shape != (PHASE8_FRAMES, 46, 80) or not 0 < labels[16:].mean() < 0.5:
+        raise AssertionError(f"labels {labels.shape}, foreground {labels.mean()}")
+    log(f"[8] generate_labels(device=cuda): {PHASE8_FRAMES} frames in {dt * 1e3:.3f} ms "
+        f"({dt * 1e3 / PHASE8_FRAMES:.4f} ms a frame), labels {labels.shape}, "
+        f"foreground {labels.mean():.4f}, mog2 launches {launches}")
+    plain, _ = _labels_timed(luma, plain=True)
+    again, split = _labels_timed(luma, plain=False)
+    for name, other in (("the MOG2 plain version's", plain), ("a timed rerun's", again)):
+        if not np.array_equal(other, labels):
+            raise AssertionError(f"{int((other != labels).sum())} labels differ from {name}")
+    log("[8] labels equal to those of the MOG2 plain version on the card")
+    log("[8] labels per frame: " + ", ".join(f"{k} {v:.5f} ms" for k, v in split.items())
+        + f"; mog2 {split['mog2'] * MOG2_CHUNK:.4f} ms of device time a "
+        f"{MOG2_CHUNK}-frame chunk")
+
+    # Windows of the PAFF clip paired with the labels (the content does not
+    # correspond: the point is the path).
+    x, starts = _paff_windows(mp4, PHASE8_FRAMES)
+    y = labels[starts + 3]
+    if x.shape[2:] != (46, 80, 4):
+        raise AssertionError(f"windows {x.shape} do not lie on the labels' grid")
+    log(f"[8] training set: x {x.shape} y {y.shape} (fg rate {y.mean():.4f})")
+
+    # Training at full width from the demo artifact's weights.
+    _, sd, meta = load_artifact(REPO / "artifacts" / "blobnet_demo.npz", "cpu")
+    cfg = BlobNetConfig(in_channels=int(meta["in_channels"]))
+    ds = ArrayDataset(x, y, batch=4, seed=SEED)
+    t0 = time.perf_counter()
+    model, trained = train_blobnet(
+        ds, epochs=PHASE8_EPOCHS, config=cfg,
+        generator=torch.Generator("cuda").manual_seed(SEED), log_every=0,
+        signed_mv=True, variables=sd, device="cuda",
+    )
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_steps = PHASE8_EPOCHS * ds.steps_per_epoch
+    log(f"[8] train_blobnet(device=cuda), {sum(p.numel() for p in model.parameters())} "
+        f"parameters, batch 4: {PHASE8_EPOCHS} epochs of {ds.steps_per_epoch} steps in "
+        f"{dt:.3f} s ({dt * 1e3 / n_steps:.3f} ms a step, metrics pulled each step)")
+    if not all(bool(torch.isfinite(v).all()) for v in trained.values()):
+        raise AssertionError("non-finite trained weights")
+    if all(torch.equal(trained[k], sd[k]) for k in sd if k.endswith("weight")):
+        raise AssertionError("training changed no weight")
+    batches = [b for _, b in zip(range(PHASE8_CPU_STEPS), ArrayDataset(x, y, seed=SEED + 1))]
+    timing_model = BlobNet(cfg).cuda()
+    timing_model.load_state_dict(sd)
+    step = make_train_step(timing_model, make_adam(timing_model), True,
+                           torch.Generator("cuda").manual_seed(SEED))
+    step_ms = cuda_ms(lambda: step(batches[0]), reps=20)
+    log(f"[8] one train step (CUDA events, median of 20): {step_ms:.4f} ms")
+
+    # The first steps again on the CPU, dropout 0, TF32 off on the card:
+    # each card step replayed on the CPU from the card's weights and Adam
+    # state of the moment.
+    cfg0 = BlobNetConfig(in_channels=cfg.in_channels, dropout=0.0)
+    models = {dev: BlobNet(cfg0).to(dev) for dev in ("cuda", "cpu")}
+    opts = {dev: make_adam(m) for dev, m in models.items()}
+    steps = {dev: make_train_step(m, opts[dev], True) for dev, m in models.items()}
+    models["cuda"].load_state_dict(sd)
+    losses = {"cuda": [], "cpu": []}
+    moved = []
+    for b in batches:
+        models["cpu"].load_state_dict(models["cuda"].state_dict())
+        opts["cpu"].load_state_dict(opts["cuda"].state_dict())
+        for dev in ("cuda", "cpu"):
+            losses[dev].append(float(steps[dev](b)["loss"]))
+        cpu_sd = models["cpu"].state_dict()
+        moved.append(max(float((v.cpu() - cpu_sd[k]).abs().max())
+                         for k, v in models["cuda"].state_dict().items()
+                         if v.is_floating_point()))
+    err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"[8] first {PHASE8_CPU_STEPS} steps, dropout 0, each replayed on the CPU from the "
+        f"card's state: card losses {losses['cuda']}, CPU {losses['cpu']}, max err "
+        f"{err:.3g} (tolerance {LOSS_TOL}); weights after each step within {moved}")
+    if not err <= LOSS_TOL:
+        raise AssertionError(f"card losses differ from the CPU's by {err}")
+    # The same steps on the CPU run apart from the card's (printed, not
+    # held: see LOSS_TOL).
+    apart = BlobNet(cfg0)
+    apart.load_state_dict(sd)
+    apart_step = make_train_step(apart, make_adam(apart), True)
+    drift = [abs(float(apart_step(b)["loss"]) - c) for b, c in zip(batches, losses["cuda"])]
+    log(f"[8] the same steps run apart on the CPU: losses differ from the card's by {drift}")
+
+    # Round trip: the Flax-layout npz, loaded again on the card, one masks
+    # step on the saved weights.
+    path = tmp / "trained.npz"
+    save_params_npz(path, trained, meta)
+    loaded, sd2, meta2 = load_artifact(path, "cuda")
+    same = all(torch.equal(sd2[k], v) for k, v in trained.items()
+               if not k.endswith("num_batches_tracked"))
+    chunk = np.random.default_rng(SEED).integers(0, 256, size=(2, 19, 46, 80, 2), dtype=np.uint8)
+    pcfg = _cfg_from_meta(meta2, host_tracking=True)
+    md = torch.from_numpy(chunk).cuda()
+    a = compressed_masks_step(loaded, pcfg, md)
+    b = compressed_masks_step(model, pcfg, md)
+    log(f"[8] save_params_npz + load_artifact on the card: weights "
+        f"{'equal' if same else 'DIFFERENT'}, masks step {tuple(a.shape)} bytes "
+        f"{'equal' if torch.equal(a, b) else 'DIFFERENT'} to the trained model's")
+    if not (same and torch.equal(a, b) and meta2 == meta):
+        raise AssertionError("the saved weights do not load back")
+    return launches
+
+
 def _kernel_lines(records) -> list:
     return [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -987,7 +1332,8 @@ def main(argv=None) -> int:
     smi = phase0_environment()
     phase1_build()
     floor = launch_floor_ms()
-    records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor)}
+    records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor),
+               "mog2": phase2_mog2(floor)}
     if args.kernels_only:
         for rec in records.values():
             rec["launches"] = None
@@ -1009,6 +1355,7 @@ def main(argv=None) -> int:
         phase6_default_pipeline(mp4, samples, tmp, res4)
         records["cc_label"]["launches"] = launches["cc_label"]
         records["nms"]["launches"] = phase7_oracle(tmp)
+        records["mog2"]["launches"] = phase8_training(mp4, tmp)
     log(f"smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": _kernel_lines(records)}))
     print(smi)

@@ -1,7 +1,7 @@
 """The PyTorch port stands apart from the JAX package.
 
-* Importing the port's pipeline and CLI loads no JAX, Flax or
-  `cova_tpu` module (the GPU machine has no JAX).
+* Importing the port's pipelines, training and CLIs loads no JAX, Flax,
+  optax or `cova_tpu` module (the GPU machine must not need JAX).
 * The host modules the port carries as copies (they are JAX-free, but
   their package's __init__ imports JAX) stay equal to their originals,
   after mapping `cova_tpu_torch` to `cova_tpu`, except for the listed
@@ -58,9 +58,10 @@ def test_copied_module_matches_original(rel):
 
 
 def _function_source(path, name):
+    """Source of the top-level function or class `name` in `path`."""
     text = path.read_text()
     for node in ast.parse(text).body:
-        if isinstance(node, ast.FunctionDef) and node.name == name:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and node.name == name:
             return ast.get_source_segment(text, node)
     raise AssertionError(f"{name} not in {path}")
 
@@ -72,17 +73,34 @@ def test_unpack_outputs_np_matches_original():
     assert port == orig
 
 
+# The lines a copied function may change: (port's text, original's text).
+FUNCTION_CHANGES = {
+    # The port makes the MOG2 labels on a torch device, the card by default.
+    "build_training_set": [
+        ('    log=print,\n    device="cuda",\n', "    log=print,\n"),
+        ("generate_labels(luma, device=device)", "generate_labels(luma)"),
+    ],
+}
+
+
 @pytest.mark.parametrize(
     "rel,name",
     [
         ("pipeline/compressed.py", "unpack_masks"),
         ("utils/dataset.py", "pack_metadata"),
         ("utils/dataset.py", "decode_luma_halfres"),
+        ("utils/dataset.py", "_negate_mv_channel"),
+        ("utils/dataset.py", "augment_training_set"),
+        ("utils/dataset.py", "build_training_set"),
+        ("utils/dataset.py", "ArrayDataset"),
     ],
 )
 def test_copied_function_matches_original(rel, name):
     port = _function_source(REPO / "cova_tpu_torch" / rel, name)
     orig = _function_source(REPO / "cova_tpu" / rel, name)
+    for new, old in FUNCTION_CHANGES.get(name, []):
+        assert port.count(new) == 1, new
+        port = port.replace(new, old)
     assert port == orig
 
 
@@ -95,8 +113,12 @@ def test_port_imports_no_jax():
         "import cova_tpu_torch.models.yolov4, cova_tpu_torch.models.darknet_cfg\n"
         "import cova_tpu_torch.models.bgdet, cova_tpu_torch.pipeline.naive\n"
         "import cova_tpu_torch.ops.cuda.nms_kernel, cova_tpu_torch.utils.dataset\n"
+        "import cova_tpu_torch.ops.cuda.mog2_kernel, cova_tpu_torch.utils.mog\n"
+        "import cova_tpu_torch.models.losses, cova_tpu_torch.models.train_blobnet\n"
+        "import cova_tpu_torch.examples.train_blobnet\n"
+        "import cova_tpu_torch.examples.finetune_augment\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cova_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'cova_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -106,8 +128,11 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+JAX_NAMES = ("jax", "jaxlib", "flax", "optax", "cova_tpu")
+
+
 def test_port_sources_do_not_name_jax():
-    for path in sorted((REPO / "cova_tpu_torch").rglob("*.py")):
+    for path in sorted((REPO / "cova_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -117,7 +142,7 @@ def test_port_sources_do_not_name_jax():
             else:
                 continue
             for n in names:
-                assert n.split(".")[0] not in ("jax", "jaxlib", "flax", "cova_tpu"), (path, n)
+                assert n.split(".")[0] not in JAX_NAMES, (path, n)
 
 
 ENTRY_POINTS = [
@@ -128,6 +153,10 @@ ENTRY_POINTS = [
     ("models.yolov4", "create_yolov4"),
     ("models.darknet_cfg", "create_darknet"),
     ("models.blobnet", "load_artifact"),
+    ("models.blobnet", "create_blobnet"),
+    ("models.train_blobnet", "train_blobnet"),
+    ("utils.mog", "generate_labels"),
+    ("utils.dataset", "build_training_set"),
 ]
 
 
@@ -148,6 +177,18 @@ def test_run_cova_defaults_to_the_card():
 
     assert run_cova.parser().parse_args(["in.mp4", "out"]).device == "cuda"
     assert run_cova.parser().parse_args(["in.mp4", "out", "--device", "cpu"]).device == "cpu"
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("examples.train_blobnet", ["in.mp4", "ckpt"]),
+    ("examples.finetune_augment", ["base.npz", "out.npz", "in.mp4"]),
+])
+def test_clis_default_to_the_card(module, argv):
+    import importlib
+
+    parser = importlib.import_module(f"cova_tpu_torch.{module}").parser()
+    assert parser.parse_intermixed_args(argv).device == "cuda"
+    assert parser.parse_intermixed_args(argv + ["--device", "cpu"]).device == "cpu"
 
 
 def _smoke(cwd):
