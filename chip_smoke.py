@@ -5,15 +5,19 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py [--kernels-only]
 
-Phases (--kernels-only stops after phase 2):
+Phases (--kernels-only stops after phase 2); the seconds each took are
+printed as it ends:
   0  the card, the software versions;
   1  builds every CUDA kernel of the port from the sources in the
      checkout (the CC, NMS and MOG2 kernels, one nvcc each, all at once),
-     and the port's codec library;
+     and the port's codec library; prints what ptxas says of each kernel
+     (registers, spills) and, from `cuobjdump -sass`, the MOG2 kernel's
+     instruction counts (the listing goes beside the built library);
   2  holds each kernel against its plain PyTorch version on the card,
      every case three times: CC labels, the four NMS outputs and the MOG2
-     foreground and state equal bit for bit; times each kernel at the
-     main path's shapes as device
+     foreground and state equal bit for bit; the MOG2 kernel's short
+     division against `__fdiv_rn` over 7 * 2^26 seeded pairs and the
+     edges; times each kernel at the main path's shapes as device
      time per launch (a CUDA graph of 100 launches, no host time between
      them), as the wrapper's time per call (host time included), against
      its plain version, its bound and the launch floor (a one-element
@@ -161,6 +165,43 @@ def phase1_build() -> None:
     for label, dt in done:
         log(f"[1] built {label} in {dt:.3f} s")
     log(f"[1] all builds in {time.perf_counter() - t0:.3f} s")
+    _sass_counts(_build.build("mog2_kernel"))
+
+
+def _sass_counts(lib: pathlib.Path) -> None:
+    """Instruction counts of each kernel in `lib` from `cuobjdump -sass`:
+    the whole kernel, and the address range of its widest loop (from the
+    target of a backward branch to the branch; for the MOG2 kernel the
+    loop over frames, rare branches placed inside it included), with the
+    reciprocals, range checks, calls and branches in it. The listing is
+    written beside the library, as <lib>.sass."""
+    import re
+
+    from cova_tpu_torch.ops.cuda import _build
+
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {lib.name}: {res.stderr.strip()[:400]}")
+    lib.with_suffix(".sass").write_text(res.stdout)
+    line = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+    for block in res.stdout.split("Function : ")[1:]:
+        name = block.split()[0]
+        ins = [(int(a, 16), op, rest) for a, op, rest in line.findall(block)]
+        ins = [i for i in ins if i[1] != "NOP"]
+        loops = []
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+            if target and int(target.group(1), 16) <= addr:
+                loops.append((int(target.group(1), 16), addr))
+        text = f"[1] sass {name[:60]}: {len(ins)} instructions"
+        if loops:
+            lo, hi = max(loops, key=lambda r: r[1] - r[0])
+            body = [op for addr, op, _ in ins if lo <= addr <= hi]
+            kinds = {k: sum(op.startswith(k) for op in body)
+                     for k in ("MUFU", "FCHK", "CALL", "BRA", "FFMA", "FSEL", "FSETP")}
+            text += f", {len(body)} in its widest loop ({kinds})"
+        log(text)
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W), for
@@ -500,7 +541,11 @@ def _mog2_cases() -> list:
     timed): 256-frame chunks at 360x640 (720p at half resolution) and
     540x960 (1080p), from a fresh state and from the state an earlier
     chunk of the same sequence left (computed by the plain version); one
-    frame; odd sizes; a constant sequence, where all weights tie."""
+    frame; odd sizes; a constant sequence, where all weights tie; and the
+    kernel's rarer branches: levels between components 30 apart, so that
+    one, two and three of them match; equal weights at the owner and at a
+    lower index; a state no chunk left (variances out of range, weights
+    of 0 and 1e-30, sums other than 1); lumas of 0, 1 and 2."""
     import numpy as np
     import torch
 
@@ -523,7 +568,143 @@ def _mog2_cases() -> list:
     ):
         frames = torch.from_numpy(frames).cuda()
         cases.append((label, frames, mog2_init(frames[0]), False))
+
+    rng = np.random.default_rng(SEED + 4)
+    h, w, f = 90, 160, 64
+
+    def state(weight, mean, var):
+        return [torch.from_numpy(np.broadcast_to(np.asarray(a, np.float32), (h, w, 4)).copy())
+                .cuda() for a in (weight, mean, var)]
+
+    levels = np.array([100, 115, 145, 130, 250, 108, 160, 122])
+    many = levels[np.arange(f) % len(levels)][:, None, None] + rng.integers(-3, 4, (f, h, w))
+    many = torch.from_numpy(many.astype(np.uint8)).cuda()
+    cases.append(("many-match 90x160 F=64", many,
+                  state([0.4, 0.3, 0.2, 0.1], [100.0, 100.0, 130.0, 160.0], 15.0), False))
+    noisy = torch.from_numpy(_luma_frames(f, h, w, SEED + 5)).cuda()
+    tied_w = np.tile(np.array([0.05, 0.45, 0.05, 0.45], np.float32), (h, w, 1))
+    tied_w[::2, :, 0], tied_w[::2, :, 3] = 0.45, 0.05
+    tied_m = np.tile(np.array([10.0, 60.0, 200.0, 120.0], np.float32), (h, w, 1))
+    tied_m[..., 3] = noisy[0].cpu().numpy()
+    cases.append(("tied weights 90x160 F=64", noisy, state(tied_w, tied_m, 15.0), False))
+    out_w = rng.uniform(0, 3, (h, w, 4))
+    out_w[::3, :, 1] = 0.0
+    out_w[1::3, :, 2] = 1e-30
+    out_m = noisy[0].cpu().numpy()[..., None] + rng.normal(0, 8, (h, w, 4))
+    cases.append(("outside state 90x160 F=64", noisy,
+                  state(out_w, out_m, rng.uniform(0.5, 200, (h, w, 4))), False))
+    black = rng.integers(0, 3, (f, h, w)) * rng.integers(0, 2, (f, h, w))
+    black = torch.from_numpy(black.astype(np.uint8)).cuda()
+    cases.append(("black 90x160 F=64", black, mog2_init(black[0]), False))
     return cases
+
+
+DIV_BATCH = 1 << 26
+
+
+def _division_batches(gen):
+    """(label, dividends, divisors) float32 on the card, DIV_BATCH pairs
+    each, from the ranges the MOG2 recurrence produces and the range the
+    kernel's short division is used on, drawn from `gen`."""
+    import torch
+
+    n = DIV_BATCH
+    dev = gen.device
+
+    def uniform(lo, hi):
+        return torch.rand(n, generator=gen, device=dev, dtype=torch.float64) * (hi - lo) + lo
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
+
+    def floats(exp_lo, exp_hi, mantissa=None):
+        """2**e * 1.m for e in [exp_lo, exp_hi) and random (or given)
+        mantissa bits."""
+        m = ints(0, 1 << 23) if mantissa is None else mantissa
+        return (((ints(exp_lo, exp_hi) + 127) << 23) | m).view(torch.float32)
+
+    alpha = 1.0 / 9000
+    for rep in (1, 2):
+        b = uniform(0.74, 1.01)
+        yield f"weights over their sum {rep}", (uniform(0, 1) * b).float(), b.float()
+    near_one = (ints(-64, 65) + 0x3F800000).view(torch.float32)
+    yield "weights over a sum within 64 ulps of 1", uniform(0, 1).float(), near_one
+    yield ("the whole range: 2^-60..2^60 over 2^-30..2^30", floats(-60, 60), floats(-30, 30))
+    # Divisors next to a power of two (mantissa all ones, zero, one),
+    # dividends that are powers of two, alpha times one, or random.
+    edge_m = torch.tensor([0x7FFFFF, 0, 1, 0x7FFFFE], device=dev, dtype=torch.int32)[ints(0, 4)]
+    a = floats(-60, 60)
+    a = torch.where(ints(0, 3) == 0, floats(-60, 60, torch.zeros_like(edge_m)), a)
+    a = torch.where(ints(0, 3) == 0, floats(-46, 60) * alpha, a)
+    yield "divisors next to a power of two", a, floats(-30, 30, edge_m)
+    b = uniform(4.0, 75.0).float()
+    d = ints(0, 256).float() - uniform(0, 255).float()
+    yield "distance keys d2 / var", torch.minimum(d * d, 32.0 * b), b
+    w = torch.clamp(floats(-20, 0), min=1e-6)
+    yield "rho = alpha / weight", torch.full_like(w, alpha), w
+
+
+def phase2_mog2_division() -> None:
+    """The MOG2 kernel's short division (the hardware's reciprocal, one
+    Newton step, one corrected product, with no range check) against
+    `__fdiv_rn` on the card, pair by pair: 7 batches of DIV_BATCH seeded
+    pairs, then the edges. Raises on the first pair that differs."""
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_div_pairs
+
+    def check(label, a, b):
+        quick, ieee = mog2_div_pairs(a.contiguous(), b.contiguous())
+        torch.cuda.synchronize()
+        bad = torch.nonzero(quick.view(torch.int32) != ieee.view(torch.int32))
+        if len(bad):
+            i = int(bad[0])
+            raise AssertionError(
+                f"short division differs from __fdiv_rn on {len(bad)} of {a.numel()} pairs "
+                f"({label}); the first: {float(a[i]).hex()} / {float(b[i]).hex()} gives "
+                f"{float(quick[i]).hex()}, __fdiv_rn {float(ieee[i]).hex()}")
+        torch_bad = int((ieee.view(torch.int32) != (a / b).view(torch.int32)).sum())
+        log(f"[2] mog2 division, {label}: {a.numel()} pairs, 0 differ from __fdiv_rn "
+            f"({torch_bad} of __fdiv_rn's differ from torch's a / b)")
+        return a.numel()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    total = sum(check(*batch) for batch in _division_batches(gen))
+    one = np.float32(1)
+    alpha = np.float32(1.0 / 9000)
+    sums = [np.nextafter(one, np.float32(0)), one, np.nextafter(one, np.float32(2)),
+            np.float32(0.75), np.float32(2.0**-30), np.float32(2.0**30)]
+    tops = [np.float32(0), alpha, np.float32(0.25), np.float32(2.0**-60), np.float32(2.0**60)]
+    edges = np.array([(a, b) for b in sums for a in [*tops, b]], np.float32)
+    edges = torch.from_numpy(edges).cuda()
+    total += check("edges (0, alpha, 2^-60, the divisor itself; sums an ulp off 1)",
+                   edges[:, 0], edges[:, 1])
+    log(f"[2] mog2 division: {total} pairs (2^28 = {1 << 28}) in "
+        f"{time.perf_counter() - t0:.3f} s, none differs")
+
+
+def _mog2_timed(frames, state0) -> tuple:
+    """(kernel, plain, restore) callables for timing one MOG2 case: each
+    launch first restores the state it mutates (three copies)."""
+    from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk, mog2_chunk_plain
+
+    state = [t.clone() for t in state0]
+
+    def restore():
+        for dst, src in zip(state, state0):
+            dst.copy_(src)
+
+    def kernel():
+        restore()
+        return mog2_chunk(frames, *state)
+
+    def plain():
+        restore()
+        return mog2_chunk_plain(frames, *state)
+
+    return kernel, plain, restore
 
 
 def phase2_mog2(floor: float) -> dict:
@@ -536,6 +717,7 @@ def phase2_mog2(floor: float) -> dict:
 
     from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk, mog2_chunk_plain
 
+    phase2_mog2_division()
     timed = {}
     max_err = 0.0
     for label, frames, state0, time_it in _mog2_cases():
@@ -555,20 +737,7 @@ def phase2_mog2(floor: float) -> dict:
         line = (f"[2] mog2 {label}: foreground and state equal to plain, {REPEATS} times; "
                 f"{float(ref.float().mean()):.4f} of pixels foreground")
         if time_it:
-            state = [t.clone() for t in state0]
-
-            def restore():
-                for dst, src in zip(state, state0):
-                    dst.copy_(src)
-
-            def kernel():
-                restore()
-                return mog2_chunk(frames, *state)
-
-            def plain():
-                restore()
-                return mog2_chunk_plain(frames, *state)
-
+            kernel, plain, restore = _mog2_timed(frames, state0)
             f, h, w = frames.shape
             nbytes = 2 * f * h * w + 2 * 3 * h * w * 4 * 4
             timed[label], text = _timing(kernel, plain, nbytes,
@@ -1329,11 +1498,19 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def lap(phase):
+        marks.append(time.perf_counter())
+        log(f"[{phase}] phase took {marks[-1] - marks[-2]:.1f} s")
+
     smi = phase0_environment()
     phase1_build()
+    lap(1)
     floor = launch_floor_ms()
     records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor),
                "mog2": phase2_mog2(floor)}
+    lap(2)
     if args.kernels_only:
         for rec in records.values():
             rec["launches"] = None
@@ -1341,6 +1518,7 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     phase3_compressed_stage()
+    lap(3)
     from cova_tpu_torch.codec import Mp4Demuxer
 
     with tempfile.TemporaryDirectory() as td:
@@ -1351,11 +1529,16 @@ def main(argv=None) -> int:
         log(f"[4] PAFF clip 1280x736, {samples} field samples, made in "
             f"{time.perf_counter() - t0:.3f} s")
         res4, launches = phase4_pipeline(mp4, samples, tmp)
+        lap(4)
         phase5_masks_step()
+        lap(5)
         phase6_default_pipeline(mp4, samples, tmp, res4)
+        lap(6)
         records["cc_label"]["launches"] = launches["cc_label"]
         records["nms"]["launches"] = phase7_oracle(tmp)
+        lap(7)
         records["mog2"]["launches"] = phase8_training(mp4, tmp)
+        lap(8)
     log(f"smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": _kernel_lines(records)}))
     print(smi)

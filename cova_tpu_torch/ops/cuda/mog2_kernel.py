@@ -6,17 +6,37 @@ Gaussian-mixture recurrence (Zivkovic 2004, as
 cova_tpu/utils/mog.py::_mog2_step) over a (F, H, W) uint8 luma chunk,
 updating the (H, W, K) float32 mixture state in place, and returns the
 (F, H, W) bool foreground. A CUDA tensor goes to the hand-written kernel
-(csrc/mog2_kernel.cu: one thread per pixel, its K = 4 components in
-registers for the whole chunk); a CPU tensor goes to `mog2_chunk_plain`,
-the plain step frame by frame. There is no fallback between the two.
+(csrc/mog2_kernel.cu); a CPU tensor goes to `mog2_chunk_plain`, the plain
+step frame by frame. There is no fallback between the two.
+
+The kernel keeps one thread per pixel with its K = 4 components in
+registers for the whole chunk, and does of the plain step only the work
+whose result is read: the distance keys d2 / var only where two or more
+components match (with one match the owner is that component), one rho
+(the owner's), the weakest component only where nothing matched, and the
+ranking only where the owner holds neither more than 1 - bg_ratio + 0.02
+of the weights (background whatever the order) nor, as the lightest
+component, less than (1 - bg_ratio - 0.02) / 4 (foreground whatever the
+order). Its divisions are the sequence nvcc's own division runs for
+operands far from the exponent range's ends, without the range check,
+the four weights sharing one reciprocal of their sum; `mog2_div_pairs`
+holds that sequence against `__fdiv_rn` on the card.
 
 Both compute in the same order with one rounding per operation (no fused
-multiply-add), so the kernel equals the plain version bit for bit, state
-included: the mixture weights are summed and accumulated left to right,
-ranks are those of a stable descending sort (ties to the lower index),
-and argmins pick the lowest index. ρ = α / max(w, eps) divides a tensor
-by a tensor (torch turns a Python scalar over a tensor into a reciprocal
-times the scalar, one ulp away).
+multiply-add but inside a division), so the kernel equals the plain
+version bit for bit, state included: the mixture weights are summed and
+accumulated left to right, ties rank as in a stable descending sort (to
+the lower index), and argmins pick the lowest index. rho =
+alpha / max(w, eps) divides a tensor by a tensor (torch turns a Python
+scalar over a tensor into a reciprocal times the scalar, one ulp away).
+
+The contract for a state handed in from outside: finite values, weights
+that are not negative (the verdict's short cuts and the cheaper ranking
+rest on a running sum that never falls). Nothing else is asked of it:
+variances outside [var_min, var_max], weights that do not sum to 1 and
+constants out of the ordinary are taken as the plain version takes them
+(a chunk's first frame, and any operand outside the short division's
+proven range, goes through `__fdiv_rn`).
 """
 
 from __future__ import annotations
@@ -157,6 +177,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.cova_mog2_chunk.restype = ctypes.c_int
+    lib.cova_mog2_div_pairs.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.cova_mog2_div_pairs.restype = ctypes.c_int
     return lib
 
 
@@ -164,7 +189,8 @@ def mog2_chunk(frames: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor,
                var: torch.Tensor, params: Mog2Params = Mog2Params()) -> torch.Tensor:
     """MOG2 over frames (F, H, W) uint8 with the state weight/mean/var
     (H, W, K) float32, updated in place; returns (F, H, W) bool
-    foreground.
+    foreground. The state must be finite with weights that are not
+    negative.
 
     On CUDA this launches the kernel on the current stream and counts the
     launch in `mog2_chunk.launches`; it raises if the kernel cannot build
@@ -205,3 +231,25 @@ def mog2_chunk(frames: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor,
 
 
 mog2_chunk.launches = 0
+
+
+def mog2_div_pairs(a: torch.Tensor, b: torch.Tensor):
+    """The kernel's short division beside the card's IEEE division: for
+    float32 CUDA tensors a, b of one shape returns (a / b by the kernel's
+    routine, a / b by `__fdiv_rn`). The kernel relies on the two being
+    equal for a divisor in [2**-30, 2**30] and a dividend that is 0 or in
+    [2**-60, 2**60]. A check of the card, with no plain version: it raises
+    on CPU tensors."""
+    for t in (a, b):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("mog2_div_pairs takes contiguous float32 CUDA tensors")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError("a and b must share a shape and a device")
+    quick, ieee = torch.empty_like(a), torch.empty_like(a)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        rc = _lib().cova_mog2_div_pairs(a.data_ptr(), b.data_ptr(), quick.data_ptr(),
+                                        ieee.data_ptr(), a.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mog2_kernel division check failed to launch: cudaError {rc}")
+    return quick, ieee

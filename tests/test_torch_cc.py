@@ -16,6 +16,7 @@ import pytest
 import scipy.ndimage
 import torch
 
+from cova_tpu.ops.cc import connected_components as jax_connected_components
 from cova_tpu.ops.cc import mask_to_boxes as jax_mask_to_boxes
 from cova_tpu.ops.pallas.cc_kernel import connected_components_pallas
 from cova_tpu_torch.ops.cc import mask_to_boxes
@@ -57,12 +58,27 @@ def _comb(h=45, w=80):
     return mask
 
 
+def _serpentine(h=45, w=80):
+    """Every even row set, the odd rows joined at alternating ends: one
+    component that winds through the whole frame. Labelling it takes far
+    more than 32 sweeps of neighbour minima (the fixed count of the JAX
+    package's CPU path, which leaves it in pieces); the TPU kernel and
+    the port sweep until nothing changes."""
+    mask = np.zeros((h, w), bool)
+    mask[::2, :] = True
+    mask[1::4, w - 1] = True
+    mask[3::4, 0] = True
+    return mask
+
+
 CASES = {
     "random_45x80_p0.05": lambda: _random((4, 45, 80), 0.05, 0),
     "random_45x80_p0.3": lambda: _random((4, 45, 80), 0.3, 1),
     "random_46x80_p0.6": lambda: _random((2, 46, 80), 0.6, 2),
     "random_68x120_p0.3": lambda: _random((2, 68, 120), 0.3, 3),
     "spiral": lambda: _spiral()[None],
+    "serpentine": lambda: _serpentine()[None],
+    "serpentine_68x120": lambda: _serpentine(68, 120)[None],
     "empty_and_full": lambda: np.stack([np.zeros((45, 80), bool), np.ones((45, 80), bool)]),
 }
 
@@ -113,6 +129,20 @@ def test_plain_labels_match_pallas(case):
     assert connected_components.launches == before  # the CPU runs no kernel
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("h,w", [(45, 80), (46, 80), (68, 120)])
+def test_serpentine_is_one_component_where_32_sweeps_leave_pieces(h, w):
+    """The port follows the TPU kernel (sweeps until nothing changes),
+    not the JAX package's CPU path of 32 fixed sweeps: the two differ on
+    this mask, so a JAX CPU run is an oracle for the port's labels only
+    where its 32 sweeps have converged."""
+    mask = _serpentine(h, w)
+    lab = connected_components_plain(torch.from_numpy(mask[None]))[0].numpy()
+    assert set(np.unique(lab[mask]).tolist()) == {0}
+    assert (lab[~mask] == mask.size).all()
+    fixed = np.asarray(jax_connected_components(jnp.asarray(mask), 32))
+    assert len(np.unique(fixed[mask])) > 1
 
 
 def test_spiral_is_one_component_rooted_at_raster_first_pixel():

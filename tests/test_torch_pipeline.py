@@ -25,10 +25,13 @@ import torch
 import cova_tpu.config as jcfg
 import cova_tpu_torch.config as tcfg
 from cova_tpu.models.blobnet import load_artifact as jax_load_artifact
+from cova_tpu.ops.cc import connected_components as jax_connected_components
 from cova_tpu.pipeline.compressed import compressed_stage_step as jax_stage_step
 from cova_tpu.pipeline.cova import CovaPipeline as JaxCovaPipeline
 from cova_tpu.tracker.sort import sort_init as jax_sort_init
 from cova_tpu_torch.models.blobnet import load_artifact
+from cova_tpu_torch.ops.cc import mask_to_boxes as torch_mask_to_boxes
+from cova_tpu_torch.pipeline import compressed as torch_compressed
 from cova_tpu_torch.pipeline.compressed import compressed_stage_step
 from cova_tpu_torch.pipeline.cova import CovaPipeline
 from cova_tpu_torch.tracker.sort import sort_init
@@ -152,9 +155,17 @@ def _assert_csvs_match(got_dir, ref_dir):
     "clip,num_ranges,batch_frames",
     [((16, 8, 160, 16), 2, 16), ((80, 46, 300, 30), 2, 64)],
 )
-def test_pipeline_csvs_match_jax(paff_clips, tmp_path, clip, num_ranges, batch_frames):
+def test_pipeline_csvs_match_jax(paff_clips, tmp_path, monkeypatch, clip, num_ranges,
+                                 batch_frames):
     mp4 = str(paff_clips[clip])
     _, sd, _ = load_artifact(SYNTH, "cpu")
+    chunk_masks = []
+
+    def recording_mask_to_boxes(masks, *args, **kwargs):
+        chunk_masks.append(masks.numpy().copy())
+        return torch_mask_to_boxes(masks, *args, **kwargs)
+
+    monkeypatch.setattr(torch_compressed, "mask_to_boxes", recording_mask_to_boxes)
     res = CovaPipeline(
         mp4, str(tmp_path / "torch"), _cfg(tcfg, num_ranges, batch_frames), sd,
         log=lambda *_: None, device="cpu",
@@ -171,6 +182,18 @@ def test_pipeline_csvs_match_jax(paff_clips, tmp_path, clip, num_ranges, batch_f
     _assert_csvs_match(tmp_path / "torch", tmp_path / "jax")
     rows = (tmp_path / "torch" / "track.csv").read_text().splitlines()
     assert len(rows) > 1
+    # The JAX run above labels components with a fixed 32 sweeps on the
+    # CPU, the port (like the TPU kernel) until nothing changes: the JAX
+    # run is an oracle for the port only where 32 sweeps have converged.
+    # On every chunk's masks they have: 256 sweeps give the same labels.
+    assert chunk_masks and any(m.any() for m in chunk_masks)
+    for masks in chunk_masks:
+        masks = masks.reshape((-1,) + masks.shape[-2:])
+        masks = jnp.asarray(masks[masks.any(axis=(1, 2))])
+        if len(masks):
+            fixed = jax.vmap(lambda m: jax_connected_components(m, 32))(masks)
+            settled = jax.vmap(lambda m: jax_connected_components(m, 256))(masks)
+            np.testing.assert_array_equal(np.asarray(fixed), np.asarray(settled))
 
 
 @pytest.mark.parametrize("flags", [[], ["--device-tracking"]])

@@ -195,3 +195,30 @@ def test_sort_init_shapes():
     jst = jax.vmap(lambda _: jax_sort_init(64))(jnp.arange(8))
     for fld in dataclasses.fields(st):
         _close(getattr(st, fld.name).numpy(), getattr(jst, fld.name), fld.name)
+
+
+def test_eps_ladder_divides_a_tensor_by_a_tensor(monkeypatch):
+    """torch computes a Python scalar over a tensor as a reciprocal times
+    the scalar, an ulp away from the division JAX does. The eps ladder of
+    `solve_assignment` (4 * eps over the cost range) must divide a tensor
+    by a tensor: the two forms differ on float32 inputs, and no scalar is
+    divided by a tensor anywhere in the solver."""
+    from cova_tpu_torch.ops.assignment import solve_assignment
+
+    ranges = torch.from_numpy(np.random.default_rng(0).uniform(1, 50, 4096).astype(np.float32))
+    tensor_form = torch.tensor(0.04, dtype=torch.float32) / ranges
+    np.testing.assert_array_equal(tensor_form.numpy(), np.float32(0.04) / ranges.numpy())
+    assert (0.04 / ranges != tensor_form).any()
+
+    cost = torch.from_numpy(np.random.default_rng(1).uniform(0, 9, (6, 6)).astype(np.float32))
+    want = solve_assignment(cost, phases=3)
+
+    def refuse(self, other):
+        raise AssertionError("a Python scalar divided by a tensor")
+
+    monkeypatch.setattr(torch.Tensor, "__rtruediv__", refuse)
+    with pytest.raises(AssertionError):
+        1.0 / torch.ones(2)
+    got = solve_assignment(cost, phases=3)
+    assert torch.equal(got, want)
+    assert sorted(got.tolist()) == list(range(6))
