@@ -207,22 +207,25 @@ def _sass_counts(lib: pathlib.Path) -> None:
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W), for
 # each kernel's bound: the larger of its bytes (each input read once,
 # each output written once) over the memory rate and its operations over
-# the CUDA cores' float32 rate.
+# the CUDA cores' float32 rate: 67e12 counts a fused multiply-add as two
+# operations; a kernel whose arithmetic must round every operation (no
+# contraction) has half of it.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+OPS_PER_S_NO_FMA = 33.5e12
 # Operations of one IoU test in csrc/nms_kernel.cu (`iou`): 4 adds, 2
 # mins, 4 maxes, 3 subtractions, 3 multiplies, 1 divide, the compare.
 IOU_OPS = 18
 # 32-bit operations a pixel of the union-find, at most: the mask test,
 # up to four neighbour tests, a union's compares and a find's steps.
 CC_OPS_PER_PIXEL = 10
-# Operations a pixel and frame of csrc/mog2_kernel.cu, a division as one:
-# matching 4 x 8 (subtract, square, threshold product, compare, floor,
-# divide, select, argmin compare) and 3 ors, weights 4 x 3, the owner's
-# update 8, clipping 8, the weakest 6, the restart 3, normalizing 7, the
-# ranks 12, the sorted weights 16, the running sum and count 11, the
-# owner's rank 4, the verdict 2.
-MOG2_OPS_PER_PIXEL_FRAME = 124
+# Operations a pixel and frame of csrc/mog2_kernel.cu whose result the
+# common pixel (matched, a heavy owner) reads, a division as one: matching
+# 16, the keys and their compares 8, the weights 12, rho 2, the owner's
+# update 5, clipping 2, the sum 3, the quotients 4, the verdict 2, the
+# load and store 2. Every one rounds on its own (the kernel forbids
+# contraction), so they run at OPS_PER_S_NO_FMA.
+MOG2_OPS_PER_PIXEL_FRAME = 56
 # Launches in one timed CUDA graph, and times each check is repeated (a
 # race in the kernel's atomics shows as a difference between repeats).
 GRAPH_LAUNCHES = 100
@@ -273,15 +276,15 @@ def launch_floor_ms() -> float:
     return ms
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple:
+def bound_ms(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S) -> tuple:
     """(least milliseconds, "bytes" or "operations") for work that moves
-    `nbytes` and does `ops` operations on this card."""
+    `nbytes` and does `ops` operations at `ops_per_s` on this card."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _timing(fn, plain, nbytes, ops, floor) -> tuple:
+def _timing(fn, plain, nbytes, ops, floor, ops_per_s: float = OPS_PER_S) -> tuple:
     """Times of one kernel case: device ms a launch (graph), the
     wrapper's ms a call (one call between two events, host time
     included), the plain version's ms, and the bound. Returns (record
@@ -289,7 +292,7 @@ def _timing(fn, plain, nbytes, ops, floor) -> tuple:
     dev = graph_ms(fn)
     call = cuda_ms(fn)
     plain_ms = cuda_ms(plain)
-    bound, by = bound_ms(nbytes, ops)
+    bound, by = bound_ms(nbytes, ops, ops_per_s)
     rec = {"device_ms": dev, "ms": call, "plain_ms": plain_ms, "bound_ms": bound,
            "bound_by": by, "launch_floor_ms": floor}
     text = (f"device {dev:.5f} ms a launch (graph of {GRAPH_LAUNCHES}; launch floor "
@@ -741,7 +744,8 @@ def phase2_mog2(floor: float) -> dict:
             f, h, w = frames.shape
             nbytes = 2 * f * h * w + 2 * 3 * h * w * 4 * 4
             timed[label], text = _timing(kernel, plain, nbytes,
-                                         f * h * w * MOG2_OPS_PER_PIXEL_FRAME, floor)
+                                         f * h * w * MOG2_OPS_PER_PIXEL_FRAME, floor,
+                                         OPS_PER_S_NO_FMA)
             line += f"; {text}; the state's restore alone {graph_ms(restore):.5f} ms"
         log(line)
     route, source, replaces = KERNELS["mog2"]
@@ -896,10 +900,10 @@ def _pipeline_cfg(meta, host_tracking):
 CSVS = ("track", "dnn", "assoc", "stationary")
 
 
-def _run_pipeline(tag, mp4, out, cfg, sd, device, samples):
-    """Warm up, zero the kernels' launch counts, run CovaPipeline once,
-    check its output and log it. Returns (result, launch counts, number
-    of chunks)."""
+def _run_pipeline(tag, mp4, out, cfg, sd, device, samples, max_frames=None):
+    """Warm up, zero the kernels' launch counts, run CovaPipeline once
+    (`max_frames` a range at most), check its output and log it. Returns
+    (result, launch counts, number of chunks)."""
     import torch
 
     from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
@@ -912,7 +916,7 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples):
         torch.cuda.synchronize()
     connected_components.launches = 0
     nms.launches = 0
-    res = pipe.run()
+    res = pipe.run(max_frames)
     if device == "cuda":
         torch.cuda.synchronize()
     launches = {"cc_label": connected_components.launches, "nms": nms.launches}
@@ -929,6 +933,8 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples):
         f"device_dispatch {tm.device_dispatch:.3f} s, "
         f"host_mirror {tm.host_mirror:.3f} s, pixel_stage {tm.pixel_stage:.3f} s"
     )
+    if max_frames:
+        samples = sum(min(c, max_frames) for _, _, c in pipe._range_bounds())
     if res.num_frames != samples:
         raise AssertionError(f"num_frames {res.num_frames} != {samples} samples")
     if res.dead_tracks <= 0:
@@ -943,12 +949,20 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples):
     return res, launches, pipe.num_chunks
 
 
+# Fields a range of phase 4's run: two chunks of F=128 windows (T=4), so
+# the device SORT's state crosses a chunk; the clip's 300 would take three
+# (the device SORT costs about 30 s a chunk, PERF.md §5).
+PHASE4_FIELDS = 2 * 128 + 3
+
+
 def phase4_pipeline(mp4, samples, tmp) -> tuple:
-    """CovaPipeline(device="cuda") with host_tracking=False end to end;
-    returns (result, launch counts)."""
+    """CovaPipeline(device="cuda") with host_tracking=False end to end on
+    the first PHASE4_FIELDS fields of each range; returns (result, launch
+    counts)."""
     _, sd, meta = _demo_weights("cpu")
     res, launches, n_chunks = _run_pipeline(
-        "4", mp4, tmp / "out4", _pipeline_cfg(meta, False), sd, "cuda", samples
+        "4", mp4, tmp / "out4", _pipeline_cfg(meta, False), sd, "cuda", samples,
+        PHASE4_FIELDS
     )
     if launches["cc_label"] < n_chunks:
         raise AssertionError(
@@ -1045,7 +1059,7 @@ def phase6_default_pipeline(mp4, samples, tmp, phase4) -> None:
                 f"{key}: card {getattr(res, key)} != CPU {getattr(cpu, key)}"
             )
     log("[6] the four CSVs of the card run equal the CPU run's, byte for byte")
-    for label, r_ in (("phase 4 (device tracking)", phase4),
+    for label, r_ in ((f"phase 4 (device tracking, {PHASE4_FIELDS} fields a range)", phase4),
                       ("phase 6 (host tracking)", res)):
         log(
             f"[6] {label}: dead tracks {r_.dead_tracks}, dropped {r_.dropped}, "
@@ -1472,6 +1486,171 @@ def phase8_training(mp4, tmp: pathlib.Path) -> int:
     return launches
 
 
+SYNTH_RENDER = REPO / "cova_tpu_torch" / "data" / "synth_1800.mp4"
+# The synth report of the float32 path on the committed render, computed
+# on the CPU (`reproduce_synth --replay --device cpu`); the JAX package's
+# own sweep harness gives the same numbers (tests/test_torch_synth_report.py).
+SYNTH_REFERENCE = REPO / "cova_tpu_torch" / "data" / "synth_1800_report_cpu.json"
+# The bands tests/test_accuracy_golden.py holds the committed TPU report
+# (golden/synth/report.json) to: (key, bound, ">=" or "<=").
+TPU_BANDS = (("bp_accuracy", 0.98, ">="), ("gc_error", 1.7, "<="),
+             ("decode_filter_rate", 0.65, ">="), ("inference_filter_rate", 0.98, ">="))
+QUERY_PREFIX = 300  # frames a range of the card-against-CPU check
+
+
+def _query_line(rep) -> str:
+    return (f"BP {rep['bp_accuracy']:.4f}, GC {rep['gc_error']:.4f}, BPL "
+            f"{rep['bp_accuracy_local']:.4f}, GCL {rep['gc_error_local']:.4f}"
+            + (f", decode filter {rep['decode_filter_rate']:.4f}, inference filter "
+               f"{rep['inference_filter_rate']:.4f}, dead tracks {rep['dead_tracks']}"
+               if "dead_tracks" in rep else ""))
+
+
+def _query_prefix(tmp: pathlib.Path) -> None:
+    """The first QUERY_PREFIX frames of each range through the sweep
+    harness twice, BlobNet on the card and on the CPU: every mask pixel
+    at the threshold equal but where the CPU's probability lies within
+    1e-4 of it (phase 5's rule), and run_config's four CSVs byte-identical
+    unless such a pixel flipped (then the flip and the first differing
+    row are printed)."""
+    import numpy as np
+
+    from cova_tpu_torch.examples.reproduce_synth import SYNTH_WEIGHTS, synth_cfg
+    from cova_tpu_torch.examples.sweep_accuracy import SYNTH_GT, SweepContext
+    from cova_tpu_torch.models.blobnet import load_meta_npz
+
+    cfg = synth_cfg(load_meta_npz(SYNTH_WEIGHTS))
+    thr = cfg.compressed.mask_threshold
+    reps, probs = {}, {}
+    for device in ("cuda", "cpu"):
+        ctx = SweepContext(SYNTH_RENDER, gt_csv=SYNTH_GT, dataset="synth",
+                           max_frames=QUERY_PREFIX, device=device)
+        probs[device] = ctx.probs(SYNTH_WEIGHTS, use_nnz=cfg.compressed.use_nnz_channel,
+                                  signed_mv=cfg.compressed.signed_mv, cache=False)
+        reps[device] = ctx.run_config(probs[device], cfg, out_dir=str(tmp / f"q9_{device}"))
+    err, near, flips = 0.0, 0, []
+    for ri, (g, c) in enumerate(zip(probs["cuda"], probs["cpu"])):
+        err = max(err, float(np.abs(g - c).max(initial=0.0)))
+        close = np.abs(c - thr) <= 1e-4
+        near += int(close.sum())
+        flipped = (g > thr) != (c > thr)
+        if (flipped & ~close).any():
+            raise AssertionError(f"range {ri}: {int((flipped & ~close).sum())} mask pixels "
+                                 "differ from the CPU away from the threshold")
+        flips += [(ri, *map(int, ix), float(c[tuple(ix)]), float(g[tuple(ix)]))
+                  for ix in np.argwhere(flipped)]
+    log(f"[9] prefix {QUERY_PREFIX} frames a range, card vs CPU: probabilities max abs "
+        f"diff {err:.3g}, {near} pixels within 1e-4 of {thr}, {len(flips)} flipped")
+    for f in flips:
+        log(f"[9] flipped: range {f[0]} window {f[1]} pixel ({f[2]}, {f[3]}): "
+            f"CPU {f[4]!r}, card {f[5]!r}")
+    for name in CSVS:
+        a = (tmp / "q9_cuda" / f"{name}.csv").read_text().splitlines()
+        b = (tmp / "q9_cpu" / f"{name}.csv").read_text().splitlines()
+        if a == b:
+            continue
+        if not flips:
+            raise AssertionError(f"{name}.csv: card replay differs from the CPU replay")
+        row = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        log(f"[9] {name}.csv differs after a near-threshold flip, first at row {row}: "
+            f"card {a[row] if row < len(a) else None!r}, CPU {b[row] if row < len(b) else None!r}")
+    if reps["cuda"] != reps["cpu"] and not flips:
+        raise AssertionError(f"prefix report: card {reps['cuda']} != CPU {reps['cpu']}")
+    log(f"[9] the four CSVs of the card's replay equal the CPU's byte for byte: "
+        f"{all((tmp / 'q9_cuda' / f'{n}.csv').read_bytes() == (tmp / 'q9_cpu' / f'{n}.csv').read_bytes() for n in CSVS)}; "
+        f"prefix report {_query_line(reps['cuda'])}")
+
+
+def phase9_query(tmp: pathlib.Path) -> None:
+    """The query layer on the card: the synth scene's report from the
+    committed render (cova_tpu_torch/data/synth_1800.mp4) and its
+    ground truth (golden/synth/dnn_gt.csv) through the sweep harness:
+    entropy decode on the host, BlobNet's probabilities on the card, the
+    host replay of CC, SORT, the selector and the aggregator, then the
+    BP/GC metrics. In-domain (blobnet_synth.npz) and zero-shot
+    (blobnet_demo.npz) rows equal to the float32 reference on this render
+    (SYNTH_REFERENCE); each printed beside the committed TPU report and
+    its bands; then the prefix check against the CPU."""
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.codec import Mp4Demuxer
+    from cova_tpu_torch.examples.reproduce_synth import DEMO_WEIGHTS, SYNTH_WEIGHTS, synth_cfg
+    from cova_tpu_torch.examples.sweep_accuracy import SYNTH_GT, SweepContext
+    from cova_tpu_torch.models.blobnet import load_artifact, load_meta_npz
+    from cova_tpu_torch.pipeline.compressed import compressed_probs_step
+
+    t0 = time.perf_counter()
+    ctx = SweepContext(SYNTH_RENDER, gt_csv=SYNTH_GT, dataset="synth", device="cuda")
+    ctx_s = time.perf_counter() - t0
+    demux = Mp4Demuxer(str(SYNTH_RENDER))
+    t0 = time.perf_counter()
+    ctx._signed_metadata = ctx._decode_metadata(demux, signed_mv=True)
+    decode_s = time.perf_counter() - t0
+    demux.close()
+    frames = sum(c for _, c in ctx.bounds)
+    log(f"[9] SweepContext on {SYNTH_RENDER.name}: {frames} frames, {ctx.mb_w}x{ctx.mb_h} "
+        f"MBs, ranges {ctx.bounds}, {ctx_s:.3f} s (entropy decode, GT read twice); "
+        f"entropy decode of the signed-MV metadata alone {decode_s:.3f} s "
+        f"({frames / decode_s:.1f} frames/s)")
+
+    ref = json.loads(SYNTH_REFERENCE.read_text())
+    tpu = json.loads((REPO / "golden" / "synth" / "report.json").read_text())
+    reps = {}
+    for tag, weights, want, tpu_row in (
+        ("cova", SYNTH_WEIGHTS, ref, tpu),
+        ("cova_zeroshot", DEMO_WEIGHTS, ref["zeroshot_demo_weights"],
+         tpu["zeroshot_demo_weights"]),
+    ):
+        cfg = synth_cfg(load_meta_npz(weights))
+        kw = dict(use_nnz=cfg.compressed.use_nnz_channel, signed_mv=cfg.compressed.signed_mv,
+                  cache=False)
+        ctx.probs(weights, **kw)  # cuDNN's plans
+        ctx._probs_cache.clear()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        probs = ctx.probs(weights, **kw)
+        b.record()
+        b.synchronize()
+        probs_ms = a.elapsed_time(b)
+        windows = sum(len(p) for p in probs)
+        # One production chunk (R=4, F=128, T=4) of the clip on the card.
+        nch = 4 if kw["use_nnz"] else 3
+        chunk = torch.from_numpy(np.stack(
+            [m[:131, ..., :nch] for m in ctx.metadata_for(kw["signed_mv"])])).cuda()
+        model, _, _ = load_artifact(weights, "cuda")
+        step_ms = cuda_ms(lambda: compressed_probs_step(model, cfg, chunk))
+        t0 = time.perf_counter()
+        rep = ctx.run_config(probs, cfg, out_dir=str(tmp / f"q9_{tag}"))
+        replay_s = time.perf_counter() - t0
+        reps[tag] = rep
+        log(f"[9] {tag} ({weights.name}): probabilities for {windows} windows in "
+            f"{probs_ms:.3f} ms between CUDA events ({windows / probs_ms * 1e3:.1f} frames/s; "
+            f"host chunk assembly and copies included); the device step alone "
+            f"{step_ms:.3f} ms a chunk of R=4 x F=128 ({512 / step_ms * 1e3:.1f} frames/s); "
+            f"host replay {replay_s:.3f} s")
+        log(f"[9] {tag} on the card:        {_query_line(rep)}")
+        log(f"[9] {tag} float32 reference:  {_query_line(want)}")
+        log(f"[9] {tag} TPU golden (full pipeline on a TPU, another render): "
+            f"{_query_line(tpu_row)}")
+        diff = {k: (rep[k], want[k]) for k in want if k in rep and rep[k] != want[k]}
+        if diff:
+            raise AssertionError(f"{tag}: the card's report differs from the reference: {diff}")
+    r = reps["cova"]
+    verdicts = [f"{k} {r[k]} {op} {bound}: "
+                + ("held" if (r[k] >= bound if op == ">=" else r[k] <= bound) else "MISSED")
+                for k, bound, op in TPU_BANDS]
+    z = reps["cova_zeroshot"]
+    verdicts.append(f"zero-shot BP {z['bp_accuracy']} <= {r['bp_accuracy']} - 0.15: "
+                    + ("held" if z["bp_accuracy"] <= r["bp_accuracy"] - 0.15 else "MISSED"))
+    verdicts.append(f"zero-shot GC {z['gc_error']} >= 1.5 x {r['gc_error']}: "
+                    + ("held" if z["gc_error"] >= 1.5 * r["gc_error"] else "MISSED"))
+    log("[9] the TPU report's bands on this render (the float32 reference misses the "
+        "same ones): " + "; ".join(verdicts))
+    _query_prefix(tmp)
+
+
 def _kernel_lines(records) -> list:
     return [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -1539,6 +1718,8 @@ def main(argv=None) -> int:
         lap(7)
         records["mog2"]["launches"] = phase8_training(mp4, tmp)
         lap(8)
+        phase9_query(tmp)
+        lap(9)
     log(f"smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": _kernel_lines(records)}))
     print(smi)

@@ -30,3 +30,6 @@ def pytest_configure(config):
         "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
         "skips without one",
     )
+    config.addinivalue_line(
+        "markers", "slow: a whole-clip run; tier-1 deselects it (-m 'not slow')"
+    )

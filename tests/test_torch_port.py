@@ -1,7 +1,8 @@
 """The PyTorch port stands apart from the JAX package.
 
-* Importing the port's pipelines, training and CLIs loads no JAX, Flax,
-  optax or `cova_tpu` module (the GPU machine must not need JAX).
+* Importing the port's pipelines, training, query layer and CLIs loads
+  no JAX, Flax, optax, pandas or `cova_tpu` module (the GPU machine must
+  not need JAX, and has no pandas).
 * The host modules the port carries as copies (they are JAX-free, but
   their package's __init__ imports JAX) stay equal to their originals,
   after mapping `cova_tpu_torch` to `cova_tpu`, except for the listed
@@ -37,6 +38,8 @@ COPIES = {
     "tracker/host.py": None,
     "models/bgdet.py": None,
     "pipeline/naive.py": None,
+    # The docstring names the demo clip without a machine path.
+    "query/datasets.py": ("The demo dataset is the", "(reference: parse/config.yaml"),
 }
 
 
@@ -117,8 +120,13 @@ def test_port_imports_no_jax():
         "import cova_tpu_torch.models.losses, cova_tpu_torch.models.train_blobnet\n"
         "import cova_tpu_torch.examples.train_blobnet\n"
         "import cova_tpu_torch.examples.finetune_augment\n"
+        "import cova_tpu_torch.query, cova_tpu_torch.examples.accuracy\n"
+        "import cova_tpu_torch.examples.sweep_accuracy, cova_tpu_torch.examples.reproduce_synth\n"
+        "import cova_tpu_torch.examples.run_experiment\n"
+        "import cova_tpu_torch.examples.reproduce_accuracy\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'cova_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'cova_tpu',\n"
+        "                                    'pandas'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -128,7 +136,9 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-JAX_NAMES = ("jax", "jaxlib", "flax", "optax", "cova_tpu")
+# pandas too: the card's machine has none (the query layer reads CSVs
+# with numpy).
+JAX_NAMES = ("jax", "jaxlib", "flax", "optax", "cova_tpu", "pandas")
 
 
 def test_port_sources_do_not_name_jax():
@@ -157,6 +167,7 @@ ENTRY_POINTS = [
     ("models.train_blobnet", "train_blobnet"),
     ("utils.mog", "generate_labels"),
     ("utils.dataset", "build_training_set"),
+    ("examples.sweep_accuracy", "SweepContext.__init__"),
 ]
 
 
@@ -182,6 +193,10 @@ def test_run_cova_defaults_to_the_card():
 @pytest.mark.parametrize("module,argv", [
     ("examples.train_blobnet", ["in.mp4", "ckpt"]),
     ("examples.finetune_augment", ["base.npz", "out.npz", "in.mp4"]),
+    ("examples.sweep_accuracy", []),
+    ("examples.reproduce_synth", ["--replay"]),
+    ("examples.reproduce_accuracy", ["--input", "in.mp4"]),
+    ("examples.run_experiment", ["exp.json"]),
 ])
 def test_clis_default_to_the_card(module, argv):
     import importlib
