@@ -46,7 +46,23 @@ printed as it ends:
      PAFF clip's metadata windows paired with them; `train_blobnet` for
      two epochs from the demo artifact's weights; the first steps again
      on the CPU (dropout 0), losses within LOSS_TOL; the trained weights
-     saved in the Flax layout, loaded back and run through a masks step.
+     saved in the Flax layout, loaded back and run through a masks step;
+  9  the synth query answered from the committed render (BlobNet on the
+     card, the host replay), held to the float32 reference exactly;
+ 10  examples/profile_device.py on one chunk of the committed render (R=8,
+     F=16, medians of 5 runs a probe, a pipelined run of 2 chunks): the
+     all-device split with K1, the masks/+labels/+stats probes again with
+     the plain labelling, every probe's scalar equal to the CPU's on the
+     same chunk;
+ 11  examples/soak.py: the committed render looped 10 times (18,000
+     frames), 8 ranges, last="select"; RSS growth within its budget, the
+     peak device memory;
+ 12  multi-device on the one card: the masks step (F=128) and the
+     all-device stage (F=16) sharded over the mesh [cuda:0, cuda:0], bit
+     for bit equal to one device; the data-parallel train step at full
+     width with two gloo ranks sharing cuda:0 against the one-device step
+     on the global batch; `dryrun_multichip` over the visible cards
+     (NCCL).
 Every phase raises on failure; nothing falls back to the CPU. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -61,7 +77,6 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import pathlib
 import statistics
@@ -872,13 +887,9 @@ def phase3_compressed_stage() -> None:
 
 
 def _paff_clip(tmp: pathlib.Path, frames: int) -> pathlib.Path:
+    from cova_tpu_torch.tools import paff_gen as pg
     from cova_tpu_torch.utils.mp4loop import mux_rec_to_mp4
 
-    spec = importlib.util.spec_from_file_location(
-        "paff_gen", REPO / "cova_tpu" / "csrc" / "tools" / "paff_gen.py"
-    )
-    pg = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(pg)
     rec = tmp / "paff.rec"
     mp4 = tmp / "paff.mp4"
     pg.scenario_pipeline(80, 46, frames, 30).write_rec(str(rec))
@@ -1651,6 +1662,308 @@ def phase9_query(tmp: pathlib.Path) -> None:
     _query_prefix(tmp)
 
 
+# Phase 10's cut of the profile's defaults (R=8, F=128, pipelined runs
+# of 8 chunks, three times): the device SORT is host-bound, about 0.1 s a
+# window on this render (PERF.md §5). Its 5 runs a probe stay: one run's
+# host-clock time of a SORT probe spreads by a fifth or more.
+PROFILE_F = 16
+PROFILE_REPS = 5
+PROFILE_PIPELINED_CHUNKS = 2
+PROFILE_FRONT_REPS = 20
+
+
+def phase10_profile() -> int:
+    """The all-device split of one chunk of the committed synth render
+    (examples/profile_device.py: R=8, F=PROFILE_F, PROFILE_REPS) with K1, then
+    the masks, +labels and +stats probes with the plain labelling on the
+    card; every probe's scalar equal to the same probe on the CPU on the
+    same chunk. Returns K1's launches in the profile's run."""
+    import torch
+
+    from cova_tpu_torch.examples.profile_device import (
+        DEMO_WEIGHTS,
+        PROBES,
+        SYNTH_RENDER,
+        load_chunk,
+        make_probes,
+        profile,
+        profile_cfg,
+    )
+    from cova_tpu_torch.models.blobnet import load_artifact
+    from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
+
+    def plog(line):
+        log(f"[10] {line}")
+
+    connected_components.launches = 0
+    res = profile(device="cuda", reps=PROFILE_REPS, cc_backend="cuda", batch_frames=PROFILE_F,
+                  pipelined_chunks=PROFILE_PIPELINED_CHUNKS, pipelined_runs=1, log=plog)
+    torch.cuda.synchronize()
+    launches = connected_components.launches
+    if launches == 0:
+        raise AssertionError("the profile with --cc-backend cuda launched K1 no time")
+    # The masks, +labels and +stats probes again, with K1 and with the
+    # plain labelling, PROFILE_FRONT_REPS times each: one run's host-clock
+    # delta of a labelling that takes well under a millisecond is noise.
+    k1 = profile(device="cuda", reps=PROFILE_FRONT_REPS, cc_backend="cuda",
+                 batch_frames=PROFILE_F, sort=False, log=plog)
+    connected_components.launches = 0
+    plain = profile(device="cuda", reps=PROFILE_FRONT_REPS, cc_backend="plain",
+                    batch_frames=PROFILE_F, sort=False, log=plog)
+    torch.cuda.synchronize()
+    if connected_components.launches:
+        raise AssertionError(f"the plain labelling launched K1 {connected_components.launches} times")
+
+    model, _, meta = load_artifact(DEMO_WEIGHTS, "cpu")
+    cfg = profile_cfg(meta, PROFILE_F)
+    probes = make_probes(model, cfg, torch.from_numpy(load_chunk(SYNTH_RENDER, cfg)), "auto")
+    t0 = time.perf_counter()
+    cpu = {name: probes[name]().item() for name in PROBES}
+    log(f"[10] the probes on the CPU ({time.perf_counter() - t0:.3f} s): {cpu}")
+    log(f"[10] the probes on the card, K1: {res['values']}; plain labelling: {plain['values']}")
+    for name in PROBES:
+        for label, values in (("K1", res["values"]), ("K1", k1["values"]),
+                              ("plain", plain["values"])):
+            if name in values and values[name] != cpu[name]:
+                raise AssertionError(f"probe {name} ({label}): card {values[name]} != CPU {cpu[name]}")
+    s = res["seconds"]
+    log(f"[10] all-device split, R=8 F={PROFILE_F} 45x80, medians of {PROFILE_REPS} (seconds): "
+        f"{json.dumps(res['report']['deltas'])} (unrounded: {json.dumps(s)}); the SORT scan is "
+        f"{(s['+sort'] - s['+stats']) / s['+sort']:.4f} of the chunk's device program (+sort); "
+        f"+sort starts from the fresh SORT state each time and full+pull carries its state, as "
+        f"in the JAX profile, so their difference is not the transfer's cost alone; pipelined "
+        f"{res['pipelined_fps']:.1f} frames/s; K1 launches {launches}")
+    for label, r_ in (("K1", k1), ("plain", plain)):
+        s = r_["seconds"]
+        log(f"[10] medians of {PROFILE_FRONT_REPS}, {label}: masks {s['masks'] * 1e3:.4f} ms, "
+            f"labelling {(s['+labels'] - s['masks']) * 1e3:.4f} ms, stats "
+            f"{(s['+stats'] - s['+labels']) * 1e3:.4f} ms inside the program")
+    return launches
+
+
+SOAK_REPS = 10
+
+
+def phase11_soak(tmp: pathlib.Path) -> None:
+    """examples/soak.py on the card: the committed synth render looped
+    SOAK_REPS times, 8 ranges, last="select" (the stub pixel decoder);
+    RSS growth within the soak's budget."""
+    import os
+
+    import torch
+
+    from cova_tpu_torch.codec import Mp4Demuxer
+    from cova_tpu_torch.examples.soak import RSS_BUDGET_MB, soak
+
+    budget = float(os.environ.get("SOAK_RSS_BUDGET_MB", RSS_BUDGET_MB))
+    torch.cuda.reset_peak_memory_stats()
+    report = soak(SOAK_REPS, tmp / "soak", SYNTH_RENDER, "cuda")
+    log(f"[11] peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+        "(torch.cuda.max_memory_allocated over the soak)")
+    log(f"[11] soak report: {json.dumps(report)}")
+    frames = SOAK_REPS * Mp4Demuxer(str(SYNTH_RENDER)).num_samples
+    if report["frames"] != frames:
+        raise AssertionError(f"soak ran {report['frames']} frames, not {frames}")
+    if report["rss_growth_mb"] > budget:
+        raise AssertionError(f"soak RSS grew {report['rss_growth_mb']} MB (budget {budget})")
+
+
+# The data-parallel rehearsal: DP_STEPS Adam steps on global batches of
+# DP_BATCH windows, two ranks sharing cuda:0, against the one-device steps
+# on the global batch, with tests/test_torch_dp_train.py's tolerances: the
+# first step's outputs within 1e-5 and gradients within 2e-6, the
+# parameters after it within 1e-5 but where the gradient lies at
+# rounding-noise level (at most DP_NOISE_GRAD; Adam turns the noise into a
+# step of up to lr either way: within 2 x lr), the statistics within 1e-5,
+# its loss within 1e-4, precision and recall within 1e-6; after the last step
+# the ranks' parameters equal. At full width a few thousand weights besides
+# the ConvTranspose biases have such gradients, and their moves make the
+# two runs different models from the second step on (three steps in, their
+# parameters differed by up to 1.3e-3 on the card, and precision by 4e-5),
+# so the later steps are printed, not held, as phase 8 replays each card
+# step on the CPU from the card's state rather than comparing runs.
+DP_WORLD = 2
+DP_BATCH = 4
+DP_STEPS = 3
+DP_LR = 1e-3
+# Ten times the largest difference of a first-step gradient between two
+# ranks and one device on an H100 (1.07e-6 at full width).
+DP_NOISE_GRAD = 1e-5
+
+
+def _dp_batches():
+    """DP_STEPS seeded global batches of raw windows (T=4, 45x80, C=4,
+    signed MVs offset 128) with labels that follow the newest frame's
+    mb_class."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 12)
+    out = []
+    for _ in range(DP_STEPS):
+        x = rng.integers(0, 7, size=(DP_BATCH, 4, 45, 80, 4)).astype(np.float32)
+        x[..., 1:3] = rng.integers(121, 136, size=(DP_BATCH, 4, 45, 80, 2))
+        out.append((x, (x[:, 0, :, :, 0] >= 4).astype(np.float32)))
+    return out
+
+
+def _dp_init():
+    """Full-width BlobNet (C=4, dropout 0) from a seeded init:
+    (config, state_dict)."""
+    import dataclasses as dc
+
+    import torch
+
+    from cova_tpu_torch.models.blobnet import BlobNetConfig, create_blobnet
+
+    config = dc.replace(BlobNetConfig(in_channels=4), dropout=0.0)
+    _, sd = create_blobnet(torch.Generator().manual_seed(SEED), config, "cpu")
+    return config, sd
+
+
+def _dp_rehearsal():
+    """The data-parallel train steps of two gloo ranks sharing cuda:0
+    (gloo all-reduces CUDA tensors through the host). Returns the ranks'
+    results; a failure of either rank fails the phase."""
+    from cova_tpu_torch.graft_entry import data_parallel_steps
+    from cova_tpu_torch.parallel.mesh import run_ranks
+
+    config, sd = _dp_init()
+    args = ("cuda:0", config, {k: v.numpy() for k, v in sd.items()}, _dp_batches(), DP_LR, True)
+    return run_ranks(data_parallel_steps, DP_WORLD, "gloo", args=args)
+
+
+def _dp_check(ranks) -> str:
+    """The ranks' steps against the one-device steps on the global batch
+    on the card (the tolerances above). Returns the log line."""
+    import numpy as np
+
+    from cova_tpu_torch.models.blobnet import BlobNet
+    from cova_tpu_torch.models.train_blobnet import make_adam, make_train_step
+
+    config, sd = _dp_init()
+    single = BlobNet(config)
+    single.load_state_dict(sd)
+    single.to("cuda")
+    outs = []
+    single.register_forward_hook(lambda m, i, o: outs.append(o.detach().cpu().numpy()))
+    step = make_train_step(single, make_adam(single, DP_LR), True)
+    metrics = []
+    for i, batch in enumerate(_dp_batches()):
+        metrics.append({k: float(v) for k, v in step(batch).items()})
+        if i == 0:
+            grads = {n: p.grad.cpu().numpy().copy() for n, p in single.named_parameters()}
+            first = {k: v.cpu().numpy().copy() for k, v in single.state_dict().items()}
+    got = ranks[0]["first"]
+    out_err = float(np.abs(np.concatenate([r["first"]["out"] for r in ranks]) - outs[0]).max())
+    grad_err = max(float(np.abs(got["grads"][n] - g).max()) for n, g in grads.items())
+    if not (out_err <= 1e-5 and grad_err <= 2e-6):
+        raise AssertionError(f"DP first step: outputs {out_err}, gradients {grad_err} "
+                             "from the one-device step")
+    worst, n_noisy = {}, 0
+    for name, v in first.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        diff = np.abs(got["state"][name] - v)
+        quiet = np.abs(grads[name]) <= DP_NOISE_GRAD if name in grads else np.zeros_like(diff, bool)
+        n_noisy += int(quiet.sum())
+        worst[name] = float(diff[~quiet].max(initial=0.0))
+        if not (diff <= np.where(quiet, 2 * DP_LR * 1.01, 1e-5)).all():
+            raise AssertionError(f"DP first step {name}: {float(diff.max())} from one device")
+    got_m, want = ranks[0]["metrics"][0], metrics[0]
+    if not (abs(got_m["loss"] - want["loss"]) <= 1e-4
+            and all(abs(got_m[k] - want[k]) <= 1e-6 for k in ("precision", "recall"))):
+        raise AssertionError(f"DP first step metrics {got_m} != one device's {want}")
+    if len(ranks) != DP_WORLD or any(
+            not np.array_equal(ranks[0]["state"][k], r["state"][k])
+            for r in ranks[1:] for k in ranks[0]["state"]):
+        raise AssertionError("the ranks' parameters differ")
+    top = max(worst, key=worst.get)
+    return (f"(b) data-parallel step, {DP_WORLD} ranks over gloo on cuda:0, full width, "
+            f"{DP_STEPS} Adam steps of a global batch of {DP_BATCH}: first step outputs within "
+            f"{out_err:.3g}, gradients within {grad_err:.3g}, state after it within "
+            f"{worst[top]:.3g} ({top}) off {n_noisy} noise-level weights; the ranks equal "
+            f"after the last step; losses "
+            f"{[m['loss'] for m in ranks[0]['metrics']]} against one device's "
+            f"{[m['loss'] for m in metrics]}; precision and recall "
+            f"{[(m['precision'], m['recall']) for m in ranks[0]['metrics']]}, one device's "
+            f"{[(m['precision'], m['recall']) for m in metrics]}")
+
+
+def phase12_multi_device() -> int:
+    """Multi-device on the one card: (a) the sharded masks step (R=8,
+    F=128) and the sharded all-device stage (F=16) over the mesh
+    [cuda:0, cuda:0], bit for bit equal to the one-device stage; (b) the
+    data-parallel train step at full width, two ranks on cuda:0, against
+    the one-device step on the global batch; (c) dryrun_multichip on the
+    card. (b) and (c) run in their own processes, side by side, after
+    (a). Returns K1's launches in the sharded stage's runs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.examples.profile_device import load_chunk, profile_cfg
+    from cova_tpu_torch.graft_entry import dryrun_multichip
+    from cova_tpu_torch.models.blobnet import load_artifact
+    from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
+    from cova_tpu_torch.parallel.mesh import make_mesh
+    from cova_tpu_torch.pipeline.compressed import CompressedStage
+
+    # (a) two shards on one card.
+    dev = torch.device("cuda")
+    model, _, meta = load_artifact(REPO / "artifacts" / "blobnet_demo.npz", dev)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    cfg = profile_cfg(meta)
+    chunk = load_chunk(SYNTH_RENDER, cfg)
+    one, two = CompressedStage(model, cfg, 8, dev), CompressedStage(model, cfg, 8, dev, mesh)
+    a, b = one.run_chunk_masks(chunk).cpu(), two.run_chunk_masks(chunk).cpu()
+    if not torch.equal(a, b):
+        raise AssertionError(f"sharded masks step: {int((a != b).sum())} of {a.numel()} "
+                             "bytes differ from one device")
+    log(f"[12] (a) masks step R=8 F={cfg.compressed.batch_frames} over {len(mesh.devices)} "
+        f"shards on cuda:0: {a.numel()} bytes equal to one device's")
+    # Two chunks, the second on the carried SORT state; the second
+    # round's times are the warm ones.
+    part = np.ascontiguousarray(chunk[:, : PROFILE_F + cfg.video.timestep - 1])
+    launches, times = 0, []
+    for k in range(2):
+        ts0 = np.full(8, cfg.video.timestep - 1 + k * PROFILE_F * cfg.compressed.gamma, np.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = [x.cpu() for x in one.run_chunk(part, ts0)[:2]]
+        t_one = time.perf_counter() - t0
+        connected_components.launches = 0
+        t0 = time.perf_counter()
+        got = [x.cpu() for x in two.run_chunk(part, ts0)[:2]]
+        times.append((t_one, time.perf_counter() - t0))
+        launches += connected_components.launches
+        for name, g, r in zip(("packed", "masks"), got, ref):
+            if not torch.equal(g, r):
+                raise AssertionError(f"sharded stage chunk {k} {name}: "
+                                     f"{int((g != r).sum())} elements differ from one device")
+    if launches != 2 * mesh.size:
+        raise AssertionError(f"K1 launched {launches} times for 2 chunks of {mesh.size} shards")
+    (_, _), (t_one, t_two) = times
+    log(f"[12] (a) all-device stage R=8 F={PROFILE_F} over 2 shards on cuda:0 (the blocks run "
+        f"in series), two chunks (the second on the carried SORT state): packed "
+        f"{tuple(got[0].shape)} and masks equal to one device's, bit for bit; K1 launches "
+        f"{launches}; seconds a chunk, one device then two shards: "
+        f"{[[round(x, 4), round(y, 4)] for x, y in times]}; warm, two shards take "
+        f"{t_two / t_one:.3f} of one device's time")
+
+    # (b) and (c) in their own processes, after (a)'s timed runs.
+    with ThreadPoolExecutor(2) as pool:
+        dp = pool.submit(_dp_rehearsal)
+        dry = pool.submit(dryrun_multichip, torch.cuda.device_count(), "cuda")
+
+        # (b) the data-parallel step against one device on the global batch.
+        log(f"[12] {_dp_check(dp.result())}")
+
+        # (c) the dry run.
+        log(f"[12] (c) {dry.result()}")
+    return launches
+
+
 def _kernel_lines(records) -> list:
     return [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -1720,6 +2033,14 @@ def main(argv=None) -> int:
         lap(8)
         phase9_query(tmp)
         lap(9)
+        k1_profile = phase10_profile()
+        lap(10)
+        phase11_soak(tmp)
+        lap(11)
+        k1_sharded = phase12_multi_device()
+        lap(12)
+        log(f"K1 launches: phase 4 (the main path) {launches['cc_label']}, phase 10 (profile) "
+            f"{k1_profile}, phase 12 (sharded stage) {k1_sharded}")
     log(f"smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": _kernel_lines(records)}))
     print(smi)

@@ -95,17 +95,35 @@ class PointWiseTemporal(nn.Module):
         return F.relu(h + x)
 
 
-def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, process_group=None) -> torch.Tensor:
     """BatchNorm over (N, C, H, W). Eval mode: the running statistics.
     Train mode, as Flax: the batch mean and biased variance
     (E[x^2] - E[x]^2, clipped at 0), y = (x - mean) * (scale *
     rsqrt(var + eps)) + bias, and the running statistics updated as
-    0.99 * running + 0.01 * batch without gradient."""
+    0.99 * running + 0.01 * batch without gradient.
+
+    With a process group (data-parallel training, each rank holding a
+    shard of the batch), the batch is the global one, as in a Flax step
+    jitted over a sharded batch: the per-channel sums of x and x^2 and
+    the count are all-reduced with autograd, so every rank normalises
+    with, and stores, the global mean and variance. The all-reduce's
+    backward sums the incoming gradients over the ranks: each rank's loss
+    must enter the graph as its share of the global loss."""
     if not bn.training:
         return bn(x)
     axes = (0, 2, 3)
-    mean = x.mean(dim=axes)
-    var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+    if process_group is None:
+        mean = x.mean(dim=axes)
+        ex2 = (x * x).mean(dim=axes)
+    else:
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        from torch.distributed.nn.functional import all_reduce
+
+        sums = all_reduce(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes), count]),
+                          group=process_group)
+        mean, ex2 = sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
+    var = torch.clamp(ex2 - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
         bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
@@ -197,17 +215,18 @@ class BlobNet(nn.Module):
             if isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None, process_group=None) -> torch.Tensor:
         """x: (B, T, H, W, C) float -> (B, H, W) float32 probabilities.
         In train mode with dropout, `generator` (on x's device) draws the
-        masks."""
+        masks; with `process_group`, BatchNorm's batch statistics are
+        those of the group's global batch (`_batch_norm`)."""
         b, t, h0, w0, c = x.shape
         drop = self.training and self.config.dropout > 0.0
         x = x.to(torch.float32).permute(0, 1, 4, 2, 3)  # (B, T, C, H, W)
         skips = []
         for conv, bn, pwt in zip(self.enc_conv, self.enc_bn, self.enc_pwt):
             y = x.reshape((b * t,) + x.shape[2:])
-            y = _batch_norm(bn, F.relu(conv(y)))
+            y = _batch_norm(bn, F.relu(conv(y)), process_group)
             y = _pool_pad(y)
             x = pwt(y.reshape((b, t) + y.shape[1:]), generator)
             skips.append(x)
@@ -222,7 +241,8 @@ class BlobNet(nn.Module):
             x = convt(x)
             x = _crop_or_pad_center(x, *targets[i])
             if i < len(self.dec_bn):
-                x = torch.cat([_batch_norm(self.dec_bn[i], x), feats[i + 1]], dim=1)
+                x = torch.cat([_batch_norm(self.dec_bn[i], x, process_group), feats[i + 1]],
+                              dim=1)
         return torch.sigmoid(self.head(x).to(torch.float32))[:, 0]
 
 

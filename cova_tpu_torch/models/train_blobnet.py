@@ -22,7 +22,11 @@ import numpy as np
 import torch
 
 from cova_tpu_torch.models.blobnet import BlobNet, BlobNetConfig, create_blobnet
-from cova_tpu_torch.models.losses import jaccard_distance_loss, precision_recall
+from cova_tpu_torch.models.losses import (
+    jaccard_distance_loss,
+    precision_recall_counts,
+    precision_recall_from_counts,
+)
 from cova_tpu_torch.ops.preprocess import clip6_normalize
 from cova_tpu_torch.pipeline.compressed import exact_float32
 
@@ -48,13 +52,23 @@ def make_adam(model: BlobNet, lr: float = 1e-3) -> torch.optim.Adam:
 
 
 def make_train_step(model: BlobNet, optimizer: torch.optim.Optimizer,
-                    signed_mv: bool = False, generator=None):
+                    signed_mv: bool = False, generator=None, process_group=None):
     """step(batch, lr=None) -> {"loss", "precision", "recall"} (0-dim
     tensors): one update of `model` in place. batch is (x (B, T, H, W, C)
     raw metadata, y (B, H, W) labels), numpy or tensors; `lr`, when given,
     is set on the optimizer before the update. Dropout masks come from
     `generator`, on the model's device. On the card, TF32 is turned off
-    (float32 as the JAX package trains; `exact_float32`)."""
+    (float32 as the JAX package trains; `exact_float32`).
+
+    Data parallel with `process_group` (one rank a device, each with
+    its shard of the batch and an equal model and optimizer): the step is
+    the one-device step on the global batch, as the JAX step jitted over
+    a mesh-sharded batch. BatchNorm takes the global batch's statistics;
+    each rank's loss enters the graph as its share of the global mean
+    (the loss is a mean over samples); the gradients are summed over the
+    ranks before Adam, so every rank's parameters stay equal; the loss
+    returned is the global one, precision and recall ratios of the
+    summed counts."""
     dev = next(model.parameters()).device
     exact_float32(dev)
 
@@ -69,15 +83,36 @@ def make_train_step(model: BlobNet, optimizer: torch.optim.Optimizer,
             for group in optimizer.param_groups:
                 group["lr"] = lr
         model.train()
-        out = model(x, generator=generator)
+        out = model(x, generator=generator, process_group=process_group)
         loss = jaccard_distance_loss(y, out)
+        counts = precision_recall_counts(y, out.detach())
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if process_group is None:
+            loss.backward()
+        else:
+            n_global = int(_all_reduce(torch.tensor(y.shape[0], device=dev), process_group))
+            share = loss * (y.shape[0] / n_global)
+            share.backward()
+            params = [p for p in model.parameters() if p.grad is not None]
+            flat = _all_reduce(torch.cat([p.grad.reshape(-1) for p in params]),
+                               process_group)
+            for p, g in zip(params, flat.split([p.numel() for p in params])):
+                p.grad.copy_(g.view_as(p))
+            loss = _all_reduce(share.detach(), process_group)
+            counts = _all_reduce(counts, process_group)
         optimizer.step()
-        prec, rec = precision_recall(y, out.detach())
+        prec, rec = precision_recall_from_counts(counts)
         return {"loss": loss.detach(), "precision": prec, "recall": rec}
 
     return train_step
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the group's ranks (in place, returned)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def _host_copy(model: BlobNet) -> dict:

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
+from cova_tpu_torch.ops.cuda.cc_kernel import connected_components, connected_components_plain
 from cova_tpu_torch.types import INVALID_ID, MAX_BOXES_PER_FRAME, Boxes
 
 
@@ -80,11 +80,23 @@ def mask_to_boxes(
     mask: torch.Tensor,
     area_threshold: int = 1,
     max_boxes: int = MAX_BOXES_PER_FRAME,
+    backend: str = "auto",
 ) -> Boxes:
     """Label a (..., H, W) boolean mask batch and return fixed-capacity
-    per-frame boxes of the components with area >= area_threshold."""
+    per-frame boxes of the components with area >= area_threshold.
+
+    backend: "auto" labels through `connected_components` (the CUDA
+    kernel on the card, its plain version on the CPU); "cuda" insists on
+    the kernel (a CPU mask raises); "plain" runs
+    `connected_components_plain` on any device (as the JAX package's
+    backend="xla" does beside "pallas")."""
     batch_shape = mask.shape[:-2]
     flat = mask.reshape((-1,) + mask.shape[-2:]).contiguous()
-    labels = connected_components(flat)
+    if backend == "plain":
+        labels = connected_components_plain(flat)
+    elif backend == "auto" or (backend == "cuda" and flat.device.type == "cuda"):
+        labels = connected_components(flat)
+    else:
+        raise ValueError(f"cc backend {backend!r} on a {flat.device.type} mask")
     out = _stats_from_labels(flat, labels, area_threshold, max_boxes)
     return out.map(lambda x: x.reshape(batch_shape + x.shape[1:]))

@@ -1,4 +1,4 @@
-"""The compressed-domain stage on one device (PyTorch port of
+"""The compressed-domain stage (PyTorch port of
 cova_tpu/pipeline/compressed.py).
 
 One chunk of F windows per range goes through, in the all-device
@@ -17,7 +17,8 @@ bit-packed for connected components + SORT in native host code
 (tracker/host.py).
 
 R is the number of independent GoP ranges ("virtual streams"), the
-batch-parallel counterpart of the reference's gopsplit fan-out.
+batch-parallel counterpart of the reference's gopsplit fan-out; with a
+mesh, `CompressedStage` splits R over several devices (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from cova_tpu_torch.config import CovaConfig, SortConfig
 from cova_tpu_torch.models.blobnet import BlobNet
 from cova_tpu_torch.ops.cc import mask_to_boxes
 from cova_tpu_torch.ops.preprocess import metapreprocess, unpack_wire16
+from cova_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from cova_tpu_torch.tracker.sort import SortOutputs, SortState, sort_init, sort_step
 from cova_tpu_torch.types import MAX_BOXES_PER_FRAME, Boxes
 
@@ -263,7 +265,21 @@ def unpack_outputs_np(packed, shape=None):
 
 class CompressedStage:
     """Holds the model, the device and the per-range SORT state across
-    chunks. One device only: a mesh (several devices) is not ported."""
+    chunks.
+
+    With a mesh (parallel.mesh.Mesh; CovaPipeline builds one from
+    ParallelConfig.num_devices) the range axis R is split into mesh.size
+    equal contiguous blocks, block i on mesh.devices[i] with its own
+    replica of the model and its own block of SORT lanes, and the outputs
+    are joined in range order on `device`, equal to the one-device
+    stage's. num_ranges must divide by the mesh's size.
+
+    The blocks run in series: each block's step ends before the next
+    one's is issued, because the device SORT reads its auction's stopping
+    condition on the host every few rounds. The step is bound by the
+    host's kernel launches, which one process cannot spread over threads
+    (a thread a block ran two shards on one H100 at about twice the
+    serial time, PERF.md), so the stage does not yet scale over cards."""
 
     def __init__(
         self,
@@ -273,50 +289,73 @@ class CompressedStage:
         device,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the compressed stage runs on one device; sharding over a "
-                "mesh is not ported (ROADMAP: parallel/mesh)"
-            )
         self.device = torch.device(device)
-        exact_float32(self.device)
-        self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.num_ranges = num_ranges
-        self.sort_state = sort_init(cfg.sort.max_tracks, num_ranges, self.device)
+        if mesh is None:
+            mesh = Mesh((self.device,))
+        if num_ranges % mesh.size:
+            raise ValueError(
+                f"num_ranges {num_ranges} not divisible by mesh size {mesh.size}"
+            )
+        if any(d.type != self.device.type for d in mesh.devices):
+            raise ValueError(f"mesh devices {mesh.devices} are not all {self.device.type}")
+        self.mesh = mesh
+        for d in mesh.devices:
+            exact_float32(d)
+        model = model.eval()
+        self.models = [model.to(self.device)] if mesh.size == 1 else replicate(mesh, model)
+        self.sort_states = shard_batch(
+            mesh, sort_init(cfg.sort.max_tracks, num_ranges, "cpu")
+        )
+
+    def _join(self, parts):
+        """Per-block outputs (trees of tensors) joined along the range
+        axis on self.device."""
+        if len(parts) == 1:
+            return parts[0]
+        first = parts[0]
+        if isinstance(first, torch.Tensor):
+            return torch.cat([p.to(self.device) for p in parts])
+        return type(first)(**{
+            f.name: torch.cat([getattr(p, f.name).to(self.device) for p in parts])
+            for f in dataclasses.fields(first)
+        })
 
     def run_chunk(self, metadata, ts0, nwin=None):
         """metadata: (R, F+T-1, H, W, C) u8 (numpy or tensor); ts0: (R,)
         int32; nwin: optional (R,) int32 real-window bound (see
         compressed_stage_step).
 
-        Returns (packed, masks, boxes) on the device; packed has shape
+        Returns (packed, masks, boxes) on `device`; packed has shape
         `self.packed_shape` = (R, F, max_tracks, PACKED_SLOT_BYTES)."""
         r, ft = metadata.shape[:2]
         t = self.cfg.video.timestep
         f = (ft - t) // self.cfg.compressed.gamma + 1
         self.packed_shape = (r, f, self.cfg.sort.max_tracks, PACKED_SLOT_BYTES)
-        dev = self.device
         if nwin is None:
             nwin = np.full((r,), f, np.int32)
-        self.sort_state, packed, masks, boxes = compressed_stage_step(
-            self.model,
-            self.cfg,
-            torch.as_tensor(metadata, device=dev),
-            self.sort_state,
-            torch.as_tensor(np.asarray(ts0, np.int32), device=dev),
-            nwin=torch.as_tensor(np.asarray(nwin, np.int32), device=dev),
+        blocks = zip(
+            shard_batch(self.mesh, metadata),
+            shard_batch(self.mesh, np.asarray(ts0, np.int32)),
+            shard_batch(self.mesh, np.asarray(nwin, np.int32)),
         )
-        return packed, masks, boxes
+        outs = []
+        for i, (md, ts, nw) in enumerate(blocks):
+            self.sort_states[i], packed, masks, boxes = compressed_stage_step(
+                self.models[i], self.cfg, md, self.sort_states[i], ts, nwin=nw
+            )
+            outs.append((packed, masks, boxes))
+        return tuple(self._join(list(part)) for part in zip(*outs))
 
     def run_chunk_masks(self, metadata):
         """Masks-only device step (host_tracking mode): metadata
         (R, F+T-1, H, W, C) u8 (numpy or tensor) -> flat bit-packed u8
-        masks on the device; recover (R, F, H, W) with
+        masks on `device`; recover (R, F, H, W) with
         unpack_masks(pulled, self.masks_shape)."""
         r, ft, h, w = metadata.shape[:4]
         f = (ft - self.cfg.video.timestep) // self.cfg.compressed.gamma + 1
         self.masks_shape = (r, f, h, w)
-        return compressed_masks_step(
-            self.model, self.cfg, torch.as_tensor(metadata, device=self.device)
-        )
+        outs = [compressed_masks_step(model, self.cfg, md)
+                for model, md in zip(self.models, shard_batch(self.mesh, metadata))]
+        return self._join(outs)

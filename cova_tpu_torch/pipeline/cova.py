@@ -40,6 +40,7 @@ from cova_tpu_torch.aggregator import Associator
 from cova_tpu_torch.codec import Mp4Demuxer, PixelDecoder
 from cova_tpu_torch.config import CovaConfig
 from cova_tpu_torch.models.blobnet import BlobNet, BlobNetConfig
+from cova_tpu_torch.parallel.mesh import make_mesh
 from cova_tpu_torch.pipeline.compressed import (
     CompressedStage,
     unpack_masks,
@@ -121,7 +122,10 @@ class _HostCopy:
 
 
 class CovaPipeline:
-    """End-to-end pipeline, R ranges batched on one device.
+    """End-to-end pipeline, R ranges batched on one device, or split over
+    cfg.parallel.num_devices devices of `device`'s type (a mesh: each
+    device runs the stage on its block of ranges; the host state stays
+    per range in this process, so the outputs do not change).
 
     variables: a BlobNet state_dict (e.g. from
     models.blobnet.load_artifact or convert_flax_variables); None
@@ -151,10 +155,6 @@ class CovaPipeline:
         device="cuda",
         _streams=None,
     ):
-        if cfg.parallel.num_devices > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported (ROADMAP: parallel/mesh)"
-            )
         self.cfg = cfg
         self.log = log
         self.device = torch.device(device)
@@ -188,7 +188,11 @@ class CovaPipeline:
             model.reset_parameters(torch.Generator().manual_seed(0))
 
         self.num_ranges = cfg.parallel.num_ranges * len(self.streams)
-        self.stage = CompressedStage(model, cfg, self.num_ranges, self.device)
+        mesh = None
+        if cfg.parallel.num_devices > 1:
+            mesh = make_mesh(cfg.parallel.num_devices, cfg.parallel.mesh_axis,
+                             self.device.type)
+        self.stage = CompressedStage(model, cfg, self.num_ranges, self.device, mesh=mesh)
         self.num_chunks = 0
 
     @classmethod

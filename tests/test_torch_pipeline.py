@@ -208,17 +208,25 @@ def test_run_cova_cli_writes_csvs(paff_clips, tmp_path, capsys, flags):
 
 
 def test_unported_modes_raise(paff_clips, tmp_path):
-    """Only num_devices > 1 (the mesh) is left unported: the host-tracking
-    default constructs, and a multi-device config raises, for a single
-    stream and for multi-stream ingest alike."""
+    """What the port refuses: a multi-device config on more cards than
+    are visible, for a single stream and for multi-stream ingest alike
+    (nothing falls back to the CPU), and ranges that do not divide over
+    the devices. The host-tracking default and a mesh of virtual CPU
+    devices construct."""
     mp4 = str(paff_clips[(16, 8, 160, 16)])
     cfg = _cfg(tcfg, 2, 16)
     host = dataclasses.replace(
         cfg, compressed=dataclasses.replace(cfg.compressed, host_tracking=True)
     )
     assert CovaPipeline(mp4, str(tmp_path / "a"), host, device="cpu").cfg.compressed.host_tracking
-    multi = dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(num_devices=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CovaPipeline(mp4, str(tmp_path / "b"), multi, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CovaPipeline.multi([(mp4, str(tmp_path / "c"), None)], multi, device="cpu")
+    two = dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(num_ranges=2, num_devices=2))
+    assert CovaPipeline(mp4, str(tmp_path / "a2"), two, device="cpu").stage.mesh.size == 2
+    more = dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(
+        num_ranges=2, num_devices=max(2, torch.cuda.device_count() + 1)))
+    with pytest.raises(ValueError, match="visible"):
+        CovaPipeline(mp4, str(tmp_path / "b"), more, device="cuda")
+    with pytest.raises(ValueError, match="visible"):
+        CovaPipeline.multi([(mp4, str(tmp_path / "c"), None)], more, device="cuda")
+    odd = dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(num_ranges=3, num_devices=2))
+    with pytest.raises(ValueError, match="not divisible"):
+        CovaPipeline(mp4, str(tmp_path / "d"), odd, device="cpu")

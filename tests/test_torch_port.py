@@ -21,8 +21,9 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# Copied modules, and the region of each that may differ: (first line
-# prefix, prefix of the first line after it), or None for a verbatim copy.
+# Copied modules, and the regions of each that may differ: (first line
+# prefix, prefix of the first line after it), a list of such, or None for
+# a verbatim copy.
 COPIES = {
     "config.py": None,
     # The docstring names the reference's config without a machine path.
@@ -40,11 +41,28 @@ COPIES = {
     "pipeline/naive.py": None,
     # The docstring names the demo clip without a machine path.
     "query/datasets.py": ("The demo dataset is the", "(reference: parse/config.yaml"),
+    # The PAFF generator: its docstring names the reference's README
+    # without a machine path, and it imports the encoder from the port's
+    # package instead of through sys.path.
+    "tools/paff_gen.py": [("decodes any conforming stream", "field coding per ITU-T"),
+                          ("import sys", "class BitWriter")],
+    # The CABAC table headers are read from cova_tpu/csrc, where the
+    # original module's directory lies.
+    "tools/cabac_enc.py": ("_HERE = ", "def _parse_int_table"),
+}
+# Copies whose original lies elsewhere under cova_tpu/.
+ORIGINALS = {
+    "tools/paff_gen.py": "csrc/tools/paff_gen.py",
+    "tools/cabac_enc.py": "csrc/tools/cabac_enc.py",
 }
 
 
 def _strip_region(text, region):
     if region is None:
+        return text
+    if isinstance(region, list):
+        for one in region:
+            text = _strip_region(text, one)
         return text
     lines = text.splitlines(keepends=True)
     start = next(i for i, ln in enumerate(lines) if ln.startswith(region[0]))
@@ -56,8 +74,41 @@ def _strip_region(text, region):
 @pytest.mark.parametrize("rel", sorted(COPIES))
 def test_copied_module_matches_original(rel):
     port = (REPO / "cova_tpu_torch" / rel).read_text().replace("cova_tpu_torch", "cova_tpu")
-    orig = (REPO / "cova_tpu" / rel).read_text()
+    orig = (REPO / "cova_tpu" / ORIGINALS.get(rel, rel)).read_text()
     assert _strip_region(port, COPIES[rel]) == _strip_region(orig, COPIES[rel])
+
+
+def test_paff_generator_copy_writes_the_originals_stream(tmp_path):
+    """The port's generator (smoke phases 4, 6, 8) writes the same bytes
+    as the original, CAVLC and CABAC scenarios alike."""
+    import importlib.util
+
+    from cova_tpu_torch.tools import paff_gen
+
+    spec = importlib.util.spec_from_file_location(
+        "paff_gen_original", REPO / "cova_tpu" / "csrc" / "tools" / "paff_gen.py"
+    )
+    orig = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(orig)
+    for name, args in (("scenario_pipeline", (16, 8, 24, 8)), ("scenario_cabac_b", ())):
+        a, b = tmp_path / f"{name}_port.rec", tmp_path / f"{name}_orig.rec"
+        getattr(paff_gen, name)(*args).write_rec(str(a))
+        getattr(orig, name)(*args).write_rec(str(b))
+        assert a.read_bytes() == b.read_bytes(), name
+
+
+def test_chip_smoke_loads_no_module_by_path():
+    """chip_smoke.py reaches the port only through imports from the
+    checkout's root: no module executed by file path, no other directory
+    put on sys.path."""
+    text = (REPO / "chip_smoke.py").read_text()
+    for node in ast.walk(ast.parse(text)):
+        if not isinstance(node, ast.Call):
+            continue
+        name = ast.get_source_segment(text, node.func)
+        assert not name.endswith(("spec_from_file_location", "exec_module", "run_path")), name
+        if name in ("sys.path.insert", "sys.path.append"):
+            assert ast.get_source_segment(text, node.args[-1]) == "str(REPO)", name
 
 
 def _function_source(path, name):
@@ -124,6 +175,9 @@ def test_port_imports_no_jax():
         "import cova_tpu_torch.examples.sweep_accuracy, cova_tpu_torch.examples.reproduce_synth\n"
         "import cova_tpu_torch.examples.run_experiment\n"
         "import cova_tpu_torch.examples.reproduce_accuracy\n"
+        "import cova_tpu_torch.parallel, cova_tpu_torch.graft_entry\n"
+        "import cova_tpu_torch.examples.profile_device, cova_tpu_torch.examples.soak\n"
+        "import cova_tpu_torch.tools.paff_gen\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'cova_tpu',\n"
         "                                    'pandas'))\n"
@@ -168,6 +222,9 @@ ENTRY_POINTS = [
     ("utils.mog", "generate_labels"),
     ("utils.dataset", "build_training_set"),
     ("examples.sweep_accuracy", "SweepContext.__init__"),
+    ("examples.profile_device", "profile"),
+    ("examples.soak", "soak"),
+    ("graft_entry", "entry"),
 ]
 
 
@@ -197,6 +254,9 @@ def test_run_cova_defaults_to_the_card():
     ("examples.reproduce_synth", ["--replay"]),
     ("examples.reproduce_accuracy", ["--input", "in.mp4"]),
     ("examples.run_experiment", ["exp.json"]),
+    ("examples.profile_device", []),
+    ("examples.soak", ["2", "out"]),
+    ("graft_entry", []),
 ])
 def test_clis_default_to_the_card(module, argv):
     import importlib
@@ -204,6 +264,16 @@ def test_clis_default_to_the_card(module, argv):
     parser = importlib.import_module(f"cova_tpu_torch.{module}").parser()
     assert parser.parse_intermixed_args(argv).device == "cuda"
     assert parser.parse_intermixed_args(argv + ["--device", "cpu"]).device == "cpu"
+
+
+def test_multi_device_entry_points_default_to_the_card():
+    import inspect
+
+    from cova_tpu_torch.graft_entry import dryrun_multichip
+    from cova_tpu_torch.parallel.mesh import make_mesh
+
+    for fn in (dryrun_multichip, make_mesh):
+        assert inspect.signature(fn).parameters["device_type"].default == "cuda"
 
 
 def _smoke(cwd):
