@@ -62,7 +62,15 @@ printed as it ends:
      for bit equal to one device; the data-parallel train step at full
      width with two gloo ranks sharing cuda:0 against the one-device step
      on the global batch; `dryrun_multichip` over the visible cards
-     (NCCL).
+     (NCCL);
+ 13  cova_tpu_torch.bench, the headline compressed-domain bench, on the
+     committed 720p and 1080p renders of the synth scene (R=8, F=128, 5
+     passes, 4 rounds a device-only pass): each render's first chunk of
+     packed masks equal to the CPU's, its JSON line, platform cuda,
+     frames a pass equal to the demuxer's windows, no kernel launched;
+ 14  reproduce_1080p's pipeline configuration (4 ranges,
+     blobnet_demo1080.npz, cc 7, mask 0.6) with last="select" on the whole
+     1080p render, its CSVs byte-identical to the port's run on the CPU.
 Every phase raises on failure; nothing falls back to the CPU. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -1964,6 +1972,120 @@ def phase12_multi_device() -> int:
     return launches
 
 
+SYNTH_RENDER_1080P = REPO / "cova_tpu_torch" / "data" / "synth_1800_1080p.mp4"
+# The bench's passes over each render and rounds a device-only pass (its
+# CLI's defaults).
+BENCH_PASSES = 5
+BENCH_DEVICE_REPS = 4
+
+
+def _launches(reset: bool = False) -> dict:
+    """The three kernels' launch counts; `reset` sets them to 0 after."""
+    from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
+    from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk
+    from cova_tpu_torch.ops.cuda.nms_kernel import nms
+
+    wrappers = {"cc_label": connected_components, "nms": nms, "mog2": mog2_chunk}
+    counts = {name: w.launches for name, w in wrappers.items()}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return counts
+
+
+def _windows(video, nr: int, t: int) -> int:
+    """Windows of `video` split into `nr` GoP-aligned ranges, from the
+    demuxer's GoP table: the sum over ranges of max(0, samples - t + 1)."""
+    import math
+
+    from cova_tpu_torch.codec import Mp4Demuxer
+
+    d = Mp4Demuxer(str(video))
+    sizes = [g.num_samples for g in d.gops()]
+    d.close()
+    per = max(1, math.ceil(len(sizes) / nr))
+    return sum(max(0, sum(sizes[i : i + per]) - t + 1) for i in range(0, len(sizes), per))
+
+
+def phase13_bench() -> None:
+    """cova_tpu_torch.bench on the card on both committed renders: the
+    first chunk's packed masks against the port on the CPU, then the
+    passes (one JSON line each render); platform cuda, frames a pass
+    equal to the demuxer's windows, no launch of K1, K5 or K6."""
+    import os
+
+    import numpy as np
+
+    from cova_tpu_torch import bench
+    from cova_tpu_torch.models.blobnet import load_artifact
+    from cova_tpu_torch.pipeline.compressed import CompressedStage
+
+    log(f"[13] host: {os.cpu_count()} CPU cores; the bench decodes with "
+        f"{min(os.cpu_count() or 8, 16)} threads, and process CPU time sums over them")
+    model_cpu = load_artifact(bench.WEIGHTS, "cpu")[0]
+    for video in (SYNTH_RENDER, SYNTH_RENDER_1080P):
+        t0 = time.perf_counter()
+        b = bench.setup(video, "cuda")
+        try:
+            r, t = b.stage.num_ranges, b.cfg.video.timestep
+            chunk = bench.fresh_chunk(b, r)
+            bench.fill_chunk(b, chunk.numpy(), [0] * r, 0, b.ranges)
+            got = b.stage.run_chunk_masks(bench.upload(b, chunk)).cpu().numpy()
+            ref = CompressedStage(model_cpu, b.cfg, r, "cpu").run_chunk_masks(
+                chunk.clone()).numpy()
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"{video.name}: the first chunk's packed masks differ "
+                                     f"from the CPU's in {int((got != ref).sum())} bytes")
+            log(f"[13] {video.name}: first chunk R={r} F={b.cfg.compressed.batch_frames} "
+                f"{b.demux.mb_height}x{b.demux.mb_width}, {got.size} packed bytes equal to the "
+                f"CPU's; set-up and check {time.perf_counter() - t0:.1f} s")
+            _launches(reset=True)
+            out = bench.run(b, BENCH_PASSES, BENCH_DEVICE_REPS)
+            launches = _launches()
+        finally:
+            b.demux.close()
+        log(f"[13] bench {video.name}: {json.dumps(out)}")
+        windows = _windows(video, r, t)
+        if out["platform"] != "cuda" or out["frames_per_pass"] != windows:
+            raise AssertionError(f"{video.name}: platform {out['platform']}, frames a pass "
+                                 f"{out['frames_per_pass']} (the demuxer's windows: {windows})")
+        if any(launches.values()):
+            raise AssertionError(f"the bench launched {launches}: its path runs no kernel")
+        log(f"[13] {video.name}: compressed_domain_fps {out['value']} (CPU time), wall_fps "
+            f"{out['wall_fps']}, device_fps {out['device_fps']}, frames a pass {windows} "
+            f"(the demuxer's windows), kernel launches {launches}")
+
+
+def phase14_1080p(tmp: pathlib.Path) -> None:
+    """reproduce_1080p's CovaPipeline configuration (4 ranges,
+    blobnet_demo1080.npz, cc 7, mask 0.6, the tracker's defaults) with
+    last="select" on the whole 1080p render, on the card and on the CPU:
+    the four CSVs byte-identical."""
+    from cova_tpu_torch.codec import Mp4Demuxer
+    from cova_tpu_torch.examples.reproduce_1080p import WEIGHTS_1080P, operating_point
+    from cova_tpu_torch.models.blobnet import load_artifact
+
+    _, sd, meta = load_artifact(WEIGHTS_1080P, "cpu")
+    cfg = operating_point(meta, last="select")
+    samples = Mp4Demuxer(str(SYNTH_RENDER_1080P)).num_samples
+    _launches(reset=True)
+    res, _, _ = _run_pipeline("14", SYNTH_RENDER_1080P, tmp / "out14", cfg, sd, "cuda", samples)
+    launches = _launches()
+    cpu, _, _ = _run_pipeline("14", SYNTH_RENDER_1080P, tmp / "out14cpu", cfg, sd, "cpu",
+                              samples)
+    for name in CSVS:
+        if (tmp / "out14" / f"{name}.csv").read_bytes() != (
+                tmp / "out14cpu" / f"{name}.csv").read_bytes():
+            raise AssertionError(f"{name}.csv: the 1080p card run differs from the CPU run")
+    for key in ("dropped", "decoded_dependency", "decoded_inference", "dead_tracks"):
+        if getattr(res, key) != getattr(cpu, key):
+            raise AssertionError(f"{key}: card {getattr(res, key)} != CPU {getattr(cpu, key)}")
+    if any(launches.values()):
+        raise AssertionError(f"the 1080p pipeline launched {launches}: its path runs no kernel")
+    log(f"[14] the four CSVs of the card run equal the CPU run's, byte for byte, over all "
+        f"{samples} frames; kernel launches {launches}")
+
+
 def _kernel_lines(records) -> list:
     return [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -2039,6 +2161,10 @@ def main(argv=None) -> int:
         lap(11)
         k1_sharded = phase12_multi_device()
         lap(12)
+        phase13_bench()
+        lap(13)
+        phase14_1080p(tmp)
+        lap(14)
         log(f"K1 launches: phase 4 (the main path) {launches['cc_label']}, phase 10 (profile) "
             f"{k1_profile}, phase 12 (sharded stage) {k1_sharded}")
     log(f"smoke total {time.perf_counter() - t_start:.1f} s")

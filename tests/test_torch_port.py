@@ -178,6 +178,8 @@ def test_port_imports_no_jax():
         "import cova_tpu_torch.parallel, cova_tpu_torch.graft_entry\n"
         "import cova_tpu_torch.examples.profile_device, cova_tpu_torch.examples.soak\n"
         "import cova_tpu_torch.tools.paff_gen\n"
+        "import cova_tpu_torch.bench, cova_tpu_torch.examples.reproduce_1080p\n"
+        "import cova_tpu_torch.examples.fig8\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'cova_tpu',\n"
         "                                    'pandas'))\n"
@@ -257,6 +259,9 @@ def test_run_cova_defaults_to_the_card():
     ("examples.profile_device", []),
     ("examples.soak", ["2", "out"]),
     ("graft_entry", []),
+    ("bench", []),
+    ("examples.reproduce_1080p", []),
+    ("examples.fig8", []),
 ])
 def test_clis_default_to_the_card(module, argv):
     import importlib
@@ -264,6 +269,24 @@ def test_clis_default_to_the_card(module, argv):
     parser = importlib.import_module(f"cova_tpu_torch.{module}").parser()
     assert parser.parse_intermixed_args(argv).device == "cuda"
     assert parser.parse_intermixed_args(argv + ["--device", "cpu"]).device == "cpu"
+
+
+@pytest.mark.parametrize("module", ["bench", "examples.reproduce_1080p", "examples.fig8"])
+def test_clis_raise_without_a_card(module, tmp_path):
+    """With the default device and no card, they raise before any work."""
+    import importlib
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    main = importlib.import_module(f"cova_tpu_torch.{module}").main
+    argv = {"bench": [], "examples.reproduce_1080p": [str(tmp_path / "out")],
+            "examples.fig8": ["--work", str(tmp_path / "out"),
+                              "--out", str(tmp_path / "out" / "fig8.json")]}[module]
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        main(argv)
+    assert not (tmp_path / "out").exists()
 
 
 def test_multi_device_entry_points_default_to_the_card():
