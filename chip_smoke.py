@@ -9,23 +9,34 @@ Phases (--kernels-only stops after phase 2); the seconds each took are
 printed as it ends:
   0  the card, the software versions;
   1  builds every CUDA kernel of the port from the sources in the
-     checkout (the CC, NMS and MOG2 kernels, one nvcc each, all at once),
-     and the port's codec library; prints what ptxas says of each kernel
-     (registers, spills) and, from `cuobjdump -sass`, the MOG2 kernel's
-     instruction counts (the listing goes beside the built library);
+     checkout (the CC, NMS, MOG2 and SORT kernels, one nvcc each, all at
+     once), and the port's codec library; prints what ptxas says of each
+     kernel (registers, spills) and, from `cuobjdump -sass`, the MOG2
+     kernel's instruction counts (the listing goes beside the built
+     library);
   2  holds each kernel against its plain PyTorch version on the card,
-     every case three times: CC labels, the four NMS outputs and the MOG2
-     foreground and state equal bit for bit; the MOG2 kernel's short
-     division against `__fdiv_rn` over 7 * 2^26 seeded pairs and the
-     edges; times each kernel at the main path's shapes as device
-     time per launch (a CUDA graph of 100 launches, no host time between
-     them), as the wrapper's time per call (host time included), against
-     its plain version, its bound and the launch floor (a one-element
-     torch op timed as the kernels are);
-  3  the all-device compressed stage on a seeded chunk (R=8, T=4), parts
-     at F=128, the whole stage at F=16, a small chunk against the CPU;
+     every case three times: CC labels, the four NMS outputs, the MOG2
+     foreground and state, and the SORT scan's (K7) state and outputs
+     equal bit for bit, K7's auction rounds and searches equal to the
+     plain version's counts (six cases: the production chunk's first 16
+     windows, its next 16 on the carried state, nwin tails with gamma 2,
+     a full table of 64 slots, an auction stopped at max_iters,
+     graft_entry's MD=8; then K7 alone on the whole chunk, three runs
+     equal, their first 16 windows equal to the plain version's); the
+     MOG2 kernel's short division against `__fdiv_rn` over 7 * 2^26
+     seeded pairs and the edges; times each kernel at the main path's
+     shapes as device time per launch (a CUDA graph of 100 launches, 2
+     for K7, no host time between them), as the wrapper's time per call
+     (host time included), against its plain version (K7's on the
+     chunk's first 16 windows), its bound and the launch floor (a
+     one-element torch op timed as the kernels are);
+  3  the all-device compressed stage on a seeded chunk (R=8, F=128, T=4):
+     the whole stage on two chunks and its parts, a small chunk against
+     the CPU (the SORT bit for bit);
   4  `CovaPipeline` (host_tracking=False) end to end on a generated
-     1280x736 PAFF clip, counting the kernel launches that run made;
+     1280x736 PAFF clip, counting the kernel launches that run made (K7
+     once a chunk), its four CSVs byte-identical to the port's run on the
+     CPU;
   5  the host-tracking masks step (`run_chunk_masks`) timed at R=8,
      F=128 on 45x80 and 68x120, and a sub-chunk against the CPU;
   6  the default `CovaPipeline` (host_tracking=True) on the same clip,
@@ -50,19 +61,19 @@ printed as it ends:
   9  the synth query answered from the committed render (BlobNet on the
      card, the host replay), held to the float32 reference exactly;
  10  examples/profile_device.py on one chunk of the committed render (R=8,
-     F=16, medians of 5 runs a probe, a pipelined run of 2 chunks): the
-     all-device split with K1, the masks/+labels/+stats probes again with
-     the plain labelling, every probe's scalar equal to the CPU's on the
-     same chunk;
+     F=128, medians of 5 runs a probe, a pipelined run of 2 chunks): the
+     all-device split with K1 and K7, the masks/+labels/+stats probes
+     again with the plain labelling, every probe's scalar equal to the
+     CPU's on the same chunk;
  11  examples/soak.py: the committed render looped 10 times (18,000
      frames), 8 ranges, last="select"; RSS growth within its budget, the
      peak device memory;
- 12  multi-device on the one card: the masks step (F=128) and the
-     all-device stage (F=16) sharded over the mesh [cuda:0, cuda:0], bit
-     for bit equal to one device; the data-parallel train step at full
-     width with two gloo ranks sharing cuda:0 against the one-device step
-     on the global batch; `dryrun_multichip` over the visible cards
-     (NCCL);
+ 12  multi-device on the one card: the masks step and the all-device
+     stage (both F=128) sharded over the mesh [cuda:0, cuda:0], bit for
+     bit equal to one device, the stage's time against one device's; the
+     data-parallel train step at full width with two gloo ranks sharing
+     cuda:0 against the one-device step on the global batch;
+     `dryrun_multichip` over the visible cards (NCCL);
  13  cova_tpu_torch.bench, the headline compressed-domain bench, on the
      committed 720p and 1080p renders of the synth scene (R=8, F=128, 5
      passes, 4 rounds a device-only pass): each render's first chunk of
@@ -99,8 +110,8 @@ SEED = 0
 # The kernels of the port: (name, route, source, TPU kernel it replaces).
 # None has a one-call PyTorch counterpart (no torch op labels connected
 # components, none runs class-aware greedy NMS with a score filter and a
-# max_out, none runs a Gaussian-mixture background model), so their
-# library_ms is null.
+# max_out, none runs a Gaussian-mixture background model, none runs
+# SORT), so their library_ms is null.
 KERNELS = {
     "cc_label": (
         "cuda",
@@ -118,6 +129,13 @@ KERNELS = {
         "cuda",
         "cova_tpu_torch/csrc/mog2_kernel.cu",
         "cova_tpu/utils/mog.py:30",
+    ),
+    # No Pallas original: the lax.scan of sort_step (vmapped over the
+    # ranges, the auction's while_loop inside) XLA ran on the TPU.
+    "sort_scan": (
+        "cuda",
+        "cova_tpu_torch/csrc/sort_kernel.cu",
+        "cova_tpu/pipeline/compressed.py:96",
     ),
 }
 
@@ -249,6 +267,23 @@ CC_OPS_PER_PIXEL = 10
 # load and store 2. Every one rounds on its own (the kernel forbids
 # contraction), so they run at OPS_PER_S_NO_FMA.
 MOG2_OPS_PER_PIXEL_FRAME = 56
+# Operations of csrc/sort_kernel.cu whose result the data needs, each
+# rounding on its own (OPS_PER_S_NO_FMA): an existing slot's predict and
+# box 64, a pair of an existing slot and a valid box 26 (IoU 24, the cost
+# and its sign), an unassigned row's search in an auction round 3 a box
+# and 4, a match's Kalman update 2296 (the inverse 150, K 196, the mean
+# 56, I - KH 28, the two 7-term products 1274, (KR)Kᵀ 539, the sum 49).
+SORT_PREDICT_OPS = 64
+SORT_PAIR_OPS = 26
+SORT_ROW_OPS_PER_BOX = 3
+SORT_ROW_OPS = 4
+SORT_UPDATE_OPS = 2296
+# K7 takes up to a second a launch on the production chunk, whose
+# auction runs to max_iters in most windows: a graph of 2 launches times
+# it. The plain version (host-bound: about 1.3 s a window there) is held
+# to it and timed on SORT_CHECK_F windows a case.
+SORT_GRAPH_LAUNCHES = 2
+SORT_CHECK_F = 16
 # Launches in one timed CUDA graph, and times each check is repeated (a
 # race in the kernel's atomics shows as a difference between repeats).
 GRAPH_LAUNCHES = 100
@@ -777,6 +812,255 @@ def phase2_mog2(floor: float) -> dict:
             **timed[f"360x640 F={MOG2_CHUNK} fresh"]}
 
 
+def _production_masks():
+    """Phase 3's production chunk (seeded wire16 bytes, R=8, F=128, T=4,
+    45x80) through BlobNet on the card: (cfg, masks (R, F, 45, 80))."""
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.pipeline.compressed import compressed_probs
+
+    dev = torch.device("cuda")
+    model, _, meta = _demo_weights(dev)
+    cfg = _cfg_from_meta(meta)
+    r, f, t = 8, cfg.compressed.batch_frames, cfg.video.timestep
+    chunk = np.random.default_rng(SEED).integers(0, 256, size=(r, f + t - 1, 45, 80, 2),
+                                                 dtype=np.uint8)
+    probs = compressed_probs(model, cfg, torch.as_tensor(chunk, device=dev))
+    return cfg, probs > cfg.compressed.mask_threshold
+
+
+def _whole_boxes(rng, r, f, md, p):
+    """Seeded boxes in whole macroblock units on the 45x80 grid, each slot
+    valid with probability p, as Boxes (R, F, MD) on the card."""
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.types import Boxes
+
+    lt = rng.integers(0, 70, size=(r, f, md, 2))
+    wh = rng.integers(1, 12, size=(r, f, md, 2))
+    valid = rng.random((r, f, md)) < p
+    ltwh = np.where(valid[..., None], np.concatenate([lt, wh], -1), 0).astype(np.float32)
+    ids = np.full((r, f, md), -1, np.int32)
+    return Boxes(**{k: torch.from_numpy(v).cuda() for k, v in (
+        ("ltwh", ltwh), ("valid", valid), ("area", ltwh[..., 2] * ltwh[..., 3]),
+        ("class_id", ids), ("conf", np.zeros((r, f, md), np.float32)),
+        ("track_id", ids.copy()))})
+
+
+def _contested_boxes():
+    """tests/test_torch_sort_scan.py's contested input: in lane 0, 64 equal
+    tracks for 32 equal boxes in window 2, whose auction stops at
+    max_iters; lane 1 seeded boxes."""
+    import numpy as np
+
+    b = _whole_boxes(np.random.default_rng(SEED + 7), 2, 4, 32, 0.3)
+    for i, box in enumerate(((10, 10, 4, 4), (16, 10, 4, 4), (12, 10, 6, 4))):
+        b.ltwh[0, i] = b.ltwh.new_tensor(box)
+        b.valid[0, i] = True
+    b.ltwh[0, 3] = 0
+    b.valid[0, 3] = False
+    return b
+
+
+def _sort_cases(cfg, boxes, boxes8):
+    """(label, SortConfig, gamma, boxes, ts0, nwin, state) for K7 against
+    its plain version, state None for a fresh one or "carry" for the first
+    case's new state: the production chunk's first SORT_CHECK_F windows,
+    its next SORT_CHECK_F on the carried state, nwin tails with gamma 2, a
+    full table of 64 slots, the contested auction, graft_entry's MD=8."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    r, k, t = boxes.valid.shape[0], SORT_CHECK_F, cfg.video.timestep
+
+    def i32(vals):
+        return torch.tensor(vals, dtype=torch.int32, device="cuda")
+
+    def windows(b, lo, hi):
+        return b.map(lambda a: a[:, lo:hi].contiguous())
+
+    return [
+        (f"production, windows 0-{k - 1}", cfg.sort, 1, windows(boxes, 0, k), i32([t - 1] * r),
+         i32([k] * r), None),
+        (f"production, windows {k}-{2 * k - 1} on the carried state", cfg.sort, 1,
+         windows(boxes, k, 2 * k), i32([t - 1 + k] * r), i32([k] * r), "carry"),
+        (f"nwin tails, gamma=2, windows 0-{k - 1}", cfg.sort, 2, windows(boxes, 0, k),
+         i32([t - 1] * r), i32([k, 12, 8, 1, 0, k, 9, 5]), None),
+        ("full MT=64 (32 boxes a window)", dc.replace(cfg.sort, max_age=60), 1,
+         _whole_boxes(np.random.default_rng(SEED + 3), r, 8, 32, 0.95), i32([t - 1] * r),
+         i32([8] * r), None),
+        ("contested (max_iters)", cfg.sort, 1, _contested_boxes(), i32([3, 3]), i32([4, 4]),
+         None),
+        (f"MD=8 MT=16 as graft_entry, windows 0-{2 * k - 1}", dc.replace(cfg.sort, max_tracks=16),
+         1, windows(boxes8, 0, 2 * k), i32([t - 1] * r), i32([2 * k] * r), None),
+    ]
+
+
+def _bitwise_equal(got, ref) -> tuple:
+    """(every field of two SortState/SortOutputs trees equal bit for bit,
+    the largest absolute difference of a float field)."""
+    import torch
+
+    same, err = True, 0.0
+    for fld in dataclasses.fields(ref):
+        g, w = getattr(got, fld.name), getattr(ref, fld.name)
+        if g.dtype != w.dtype or g.shape != w.shape:
+            return False, float("inf")
+        if g.dtype == torch.float32:
+            err = max(err, float((g.double() - w.double()).abs().max())) if g.numel() else err
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        same &= bool(torch.equal(g, w))
+    return same, err
+
+
+def _sort_bytes_ops(boxes, state, out, row_rounds) -> tuple:
+    """(bytes, operations) K7 needs on these inputs: the boxes, ts0 and
+    nwin read, the state read and written, the outputs written (53 bytes
+    a slot and window, 4 a box); the operations of the SORT_* counts on
+    this run's existing slots, valid boxes, searching rows and matches."""
+    r, f, md = boxes.valid.shape
+    mt = state.mean.shape[1]
+    state_bytes = r * mt * (7 * 4 + 49 * 4 + 2 + 9 * 4) + 2 * r * 4
+    nbytes = (r * f * md * (16 + 1) + 2 * r * 4 + 2 * state_bytes
+              + r * f * mt * 53 + r * f * md * 4)
+    n_exist = out.predicted.sum(dim=2).double()
+    n_valid = boxes.valid.sum(dim=2).double()
+    ops = (float(n_exist.sum()) * SORT_PREDICT_OPS
+           + float((n_exist * n_valid).sum()) * SORT_PAIR_OPS
+           + row_rounds * (SORT_ROW_OPS_PER_BOX * md + SORT_ROW_OPS)
+           + int((out.matched_det >= 0).sum()) * SORT_UPDATE_OPS)
+    return nbytes, int(ops)
+
+
+def _k7_counts(r, f):
+    """Zeroed (R, F) int32 buffers on the card for K7's rounds and
+    searches."""
+    import torch
+
+    return tuple(torch.zeros((r, f), dtype=torch.int32, device="cuda") for _ in range(2))
+
+
+def phase2_sort(floor: float) -> dict:
+    """Every K7 case against the plain version on the card: every output
+    and state field bit for bit and the auction's rounds and searches
+    equal to the plain version's counts, REPEATS times from the same
+    state. Then K7 on the whole production chunk (R=8, F=128), REPEATS
+    times: the runs equal bit for bit, their first SORT_CHECK_F windows
+    equal to the plain version's. Its device time (a graph of
+    SORT_GRAPH_LAUNCHES), the wrapper's call, the plain version's time on
+    the first SORT_CHECK_F windows (from the check), the bound from this
+    run's work, the launch floor. Returns the JSON record of the kernel
+    (without launches)."""
+    import numpy as np
+    import torch
+
+    from cova_tpu_torch.ops.assignment import solve_assignment_overflow as auction
+    from cova_tpu_torch.ops.cc import mask_to_boxes
+    from cova_tpu_torch.ops.cuda.sort_kernel import sort_scan, sort_scan_plain
+    from cova_tpu_torch.tracker.sort import sort_init
+
+    cfg, masks = _production_masks()
+    boxes = mask_to_boxes(masks, cfg.compressed.cc_threshold)
+    boxes8 = mask_to_boxes(masks, cfg.compressed.cc_threshold, 8)
+    max_err, first = 0.0, None
+    for label, scfg, gamma, b, ts0, nwin, state in _sort_cases(cfg, boxes, boxes8):
+        r, f = b.valid.shape[:2]
+        state = first[0] if state == "carry" else sort_init(scfg.max_tracks, r, "cuda")
+        counts0 = auction.rounds, auction.row_rounds
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        ref_state, ref_out = sort_scan_plain(state, b, ts0, nwin, gamma, scfg)
+        t1.record()
+        t1.synchronize()
+        want = (auction.rounds - counts0[0], auction.row_rounds - counts0[1])
+        for _ in range(REPEATS):
+            rounds, searches = _k7_counts(r, f)
+            got_state, got_out = sort_scan(state, b, ts0, nwin, gamma, scfg, rounds=rounds,
+                                           searches=searches)
+            torch.cuda.synchronize()
+            for got, ref, what in ((got_state, ref_state, "state"), (got_out, ref_out, "outputs")):
+                same, err = _bitwise_equal(got, ref)
+                max_err = max(max_err, err)
+                if not same:
+                    raise AssertionError(f"sort_scan {label}: kernel {what} differ from plain "
+                                         f"(max float difference {err})")
+            if (int(rounds.sum()), int(searches.sum())) != want:
+                raise AssertionError(f"sort_scan {label}: {int(rounds.sum())} auction rounds and "
+                                     f"{int(searches.sum())} searches, the plain version counted "
+                                     f"{want}")
+        if first is None:
+            first = (ref_state, ref_out, t0.elapsed_time(t1))
+        if label.startswith("full") and not bool(ref_out.exists.all(dim=2).any()):
+            raise AssertionError(f"sort_scan {label}: no window filled every slot")
+        log(f"[2] sort_scan {label} (R={r} F={f} MT={scfg.max_tracks} MD={b.valid.shape[2]}): "
+            f"state and outputs equal to plain bit for bit, {REPEATS} times; auction rounds "
+            f"{want[0]} ({want[0] / (r * f):.2f} a lane and window, at most {int(rounds.max())}), "
+            f"searches {want[1]}, equal to the plain version's counts; "
+            f"{int(ref_out.matched_det.ge(0).sum())} matches, {int(ref_out.death.sum())} deaths, "
+            f"{int(ref_state.id_counter.sum())} ids; the plain version took "
+            f"{t0.elapsed_time(t1) / 1e3:.3f} s")
+
+    # The whole production chunk: K7 alone (the plain version would take
+    # minutes), its runs against each other and its head against the plain.
+    r, f = boxes.valid.shape[:2]
+    t = cfg.video.timestep
+    ts0 = torch.full((r,), t - 1, dtype=torch.int32, device="cuda")
+    nwin = torch.full((r,), f, dtype=torch.int32, device="cuda")
+    state = sort_init(cfg.sort.max_tracks, r, "cuda")
+    runs = []
+    for _ in range(REPEATS):
+        rounds, searches = _k7_counts(r, f)
+        out = sort_scan(state, boxes, ts0, nwin, 1, cfg.sort, rounds=rounds, searches=searches)
+        torch.cuda.synchronize()
+        runs.append((out, rounds, searches))
+    (k_state, k_out), rounds, searches = runs[0]
+    for (s2, o2), r2, q2 in runs[1:]:
+        if not (_bitwise_equal(s2, k_state)[0] and _bitwise_equal(o2, k_out)[0]
+                and torch.equal(r2, rounds) and torch.equal(q2, searches)):
+            raise AssertionError("sort_scan on the whole chunk: two runs differ")
+    head = type(k_out)(**{fl.name: getattr(k_out, fl.name)[:, :SORT_CHECK_F]
+                          for fl in dataclasses.fields(k_out)})
+    if not _bitwise_equal(head, first[1])[0]:
+        raise AssertionError(f"sort_scan on the whole chunk: its first {SORT_CHECK_F} windows "
+                             "differ from the plain version's")
+    lane_rounds, row_rounds = int(rounds.sum()), int(searches.sum())
+    nbytes, ops = _sort_bytes_ops(boxes, state, k_out, row_rounds)
+    dev_ms = graph_ms(lambda: sort_scan(state, boxes, ts0, nwin, 1, cfg.sort),
+                      launches=SORT_GRAPH_LAUNCHES, replays=3)
+    call_ms = cuda_ms(lambda: sort_scan(state, boxes, ts0, nwin, 1, cfg.sort), reps=2)
+    plain_ms = first[2]
+    bound, by = bound_ms(nbytes, ops, OPS_PER_S_NO_FMA)
+    log(f"[2] sort_scan production R={r} F={f} MT={cfg.sort.max_tracks} MD={boxes.valid.shape[2]}: "
+        f"{REPEATS} runs equal bit for bit, the first {SORT_CHECK_F} windows equal to the plain "
+        f"version's; auction rounds {lane_rounds} ({lane_rounds / (r * f):.2f} a lane and window, "
+        f"at most {int(rounds.max())}), searches {row_rounds}; {int(k_out.matched_det.ge(0).sum())} "
+        f"matches, {int(k_out.death.sum())} deaths, {int(k_state.id_counter.sum())} ids; device "
+        f"{dev_ms:.4f} ms a launch (graph of {SORT_GRAPH_LAUNCHES}; launch floor {floor:.5f}), "
+        f"wrapper call {call_ms:.4f} ms, plain {plain_ms:.4f} ms on the first {SORT_CHECK_F} "
+        f"windows, bound {bound:.6f} ms by {by} ({nbytes} bytes, {ops} operations), "
+        f"{bound / dev_ms:.4%} of it; {dev_ms / (r * f):.5f} ms a lane-window, "
+        f"{dev_ms / max(lane_rounds / r, 1):.6f} ms a round of a lane")
+    # K7 on seeded random boxes (30 % of the slots valid), beside the
+    # production chunk: its time a round where the boxes rarely overlap.
+    rand = _whole_boxes(np.random.default_rng(SEED), r, f, boxes.valid.shape[2], 0.3)
+    rounds, searches = _k7_counts(r, f)
+    sort_scan(state, rand, ts0, nwin, 1, cfg.sort, rounds=rounds, searches=searches)
+    rand_ms = cuda_ms(lambda: sort_scan(state, rand, ts0, nwin, 1, cfg.sort), reps=3)
+    log(f"[2] sort_scan on seeded random boxes R={r} F={f}, 30 % valid: {rand_ms:.4f} ms a call "
+        f"(CUDA events, median of 3), auction rounds {int(rounds.sum())} "
+        f"({int(rounds.sum()) / (r * f):.2f} a lane and window), searches "
+        f"{int(searches.sum())}, {rand_ms / max(int(rounds.sum()) / r, 1):.6f} ms a round of a "
+        f"lane")
+    route, source, replaces = KERNELS["sort_scan"]
+    return {"name": "sort_scan", "route": route, "source": source, "replaces": replaces,
+            "max_abs_err": max_err, "library_ms": None, "device_ms": dev_ms, "ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "launch_floor_ms": floor}
+
+
 def _demo_weights(device):
     from cova_tpu_torch.models.blobnet import load_artifact
 
@@ -800,11 +1084,12 @@ def _cfg_from_meta(meta, host_tracking=False):
 
 
 def phase3_compressed_stage() -> None:
-    """A chunk of seeded wire16 bytes (R=8, T=4, 45x80) through
-    CompressedStage.run_chunk on the card: BlobNet and CC+box stats timed
-    at the production F=128, the whole stage (its device SORT is
-    host-bound: about 1.5 s a window on this saturated input) at F=16;
-    then a small chunk checked stage by stage against the CPU."""
+    """A chunk of seeded wire16 bytes (R=8, F=128, T=4, 45x80) through
+    CompressedStage.run_chunk on the card: the whole stage timed on two
+    chunks (the second on the carried SORT state), and its parts
+    (metapreprocess+BlobNet, CC+box stats, the SORT scan K7); then a small
+    chunk checked stage by stage against the CPU, the SORT outputs and
+    state bit for bit."""
     import numpy as np
     import torch
 
@@ -825,43 +1110,41 @@ def phase3_compressed_stage() -> None:
     ts0 = np.full(r, t - 1, np.int32)
     stage = CompressedStage(model, cfg, r, dev)
     thr = cfg.compressed.mask_threshold
+    mt = cfg.sort.max_tracks
 
-    def parts_ms(md):
-        """metapreprocess+BlobNet and CC+box stats ms on a device chunk,
-        each warmed up first (cuDNN plans)."""
-        front = cuda_ms(lambda: compressed_probs(model, cfg, md), reps=3)
-        m = compressed_probs(model, cfg, md) > thr
-        return front, cuda_ms(lambda: mask_to_boxes(m, cfg.compressed.cc_threshold), reps=3)
-
-    front_ms, boxes_ms = parts_ms(torch.as_tensor(chunk, device=dev))
+    md = torch.as_tensor(chunk, device=dev)
+    front_ms = cuda_ms(lambda: compressed_probs(model, cfg, md), reps=3)
+    masks = compressed_probs(model, cfg, md) > thr
+    boxes_ms = cuda_ms(lambda: mask_to_boxes(masks, cfg.compressed.cc_threshold), reps=3)
+    boxes = mask_to_boxes(masks, cfg.compressed.cc_threshold)
+    ts, nw = torch.as_tensor(ts0, device=dev), torch.full((r,), f, dtype=torch.int32, device=dev)
+    sort_ms = cuda_ms(lambda: track_chunk(sort_init(mt, r, dev), boxes, ts, nw,
+                                          cfg.compressed.gamma, cfg.sort), reps=3)
+    times = []
+    for k in range(2):
+        t0 = time.perf_counter()
+        packed, masks, boxes = stage.run_chunk(chunk, ts0 + k * f * cfg.compressed.gamma)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if tuple(packed.shape) != stage.packed_shape or packed.dtype != torch.uint8:
+            raise AssertionError(f"packed {tuple(packed.shape)} != {stage.packed_shape}")
+        if not bool(torch.isfinite(boxes.ltwh).all()):
+            raise AssertionError("non-finite boxes")
     log(
-        f"[3] R={r} F={f} T={t} 45x80: metapreprocess+BlobNet {front_ms:.3f} ms, "
-        f"CC+box stats {boxes_ms:.3f} ms"
-    )
-    # The whole stage once at F=16: SORT takes the rest.
-    fw = 16
-    part = chunk[:, : fw + t - 1]
-    front_ms, boxes_ms = parts_ms(torch.as_tensor(part, device=dev))
-    t0 = time.perf_counter()
-    packed, masks, boxes = stage.run_chunk(part, ts0)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if tuple(packed.shape) != stage.packed_shape or packed.dtype != torch.uint8:
-        raise AssertionError(f"packed {tuple(packed.shape)} != {stage.packed_shape}")
-    if not bool(torch.isfinite(boxes.ltwh).all()):
-        raise AssertionError("non-finite boxes")
-    log(
-        f"[3] compressed stage chunk R={r} F={fw} T={t} 45x80: {dt * 1e3:.3f} ms, "
+        f"[3] compressed stage chunk R={r} F={f} T={t} 45x80 (from host memory): "
+        f"{times[0] * 1e3:.3f} ms, then {times[1] * 1e3:.3f} ms on the carried SORT state; "
         f"{int(boxes.valid.sum())} valid boxes, {int(masks.sum())} mask pixels"
     )
     log(
-        f"[3] of which metapreprocess+BlobNet {front_ms:.3f} ms, CC+box stats "
-        f"{boxes_ms:.3f} ms, SORT+pack (the rest) {dt * 1e3 - front_ms - boxes_ms:.3f} ms"
+        f"[3] parts on a device chunk: metapreprocess+BlobNet {front_ms:.3f} ms, CC+box stats "
+        f"{boxes_ms:.3f} ms, SORT (K7, fresh state) {sort_ms:.3f} ms; the rest of the second "
+        f"chunk (upload, pack) {times[1] * 1e3 - front_ms - boxes_ms - sort_ms:.3f} ms"
     )
 
     # Small chunk, card against CPU: probabilities within 1e-4 (cuDNN
     # sums in another order), boxes from the card's masks exactly equal
-    # to the plain labelling's, SORT integer outputs exactly equal.
+    # to the plain labelling's, the SORT (K7 against the plain version on
+    # the CPU) equal bit for bit.
     rs, fs = 2, 16
     small = chunk[:rs, : fs + t - 1]
     cpu = torch.device("cpu")
@@ -879,18 +1162,18 @@ def phase3_compressed_stage() -> None:
             raise AssertionError(f"boxes.{name}: card differs from CPU")
     ts = torch.full((rs,), t - 1, dtype=torch.int32)
     nwin = torch.full((rs,), fs, dtype=torch.int32)
-    mt = cfg.sort.max_tracks
-    _, o_gpu = track_chunk(sort_init(mt, rs, dev), b_gpu, ts.to(dev), nwin.to(dev),
-                           cfg.compressed.gamma, cfg.sort)
-    _, o_cpu = track_chunk(sort_init(mt, rs, cpu), b_cpu, ts, nwin,
-                           cfg.compressed.gamma, cfg.sort)
-    for name in ("track_id", "track_id_post", "exists", "active", "death"):
-        if not torch.equal(getattr(o_gpu, name).cpu(), getattr(o_cpu, name)):
-            raise AssertionError(f"SORT {name}: card differs from CPU")
-    lerr = float((o_gpu.track_ltwh.cpu() - o_cpu.track_ltwh).abs().max())
+    s_gpu, o_gpu = track_chunk(sort_init(mt, rs, dev), b_gpu, ts.to(dev), nwin.to(dev),
+                               cfg.compressed.gamma, cfg.sort)
+    s_cpu, o_cpu = track_chunk(sort_init(mt, rs, cpu), b_cpu, ts, nwin,
+                               cfg.compressed.gamma, cfg.sort)
+    for got, ref, what in ((s_gpu, s_cpu, "state"), (o_gpu, o_cpu, "outputs")):
+        got = type(got)(**{k.name: getattr(got, k.name).cpu() for k in dataclasses.fields(got)})
+        if not _bitwise_equal(got, ref)[0]:
+            raise AssertionError(f"SORT {what}: card (K7) differs from the CPU")
     log(
         f"[3] small chunk R={rs} F={fs}: probs max err {perr:.3g}, boxes equal, "
-        f"SORT ids/flags equal, track_ltwh max err {lerr:.3g}"
+        f"SORT outputs and state (K7 on the card, the plain version on the CPU) equal bit "
+        f"for bit"
     )
 
 
@@ -925,20 +1208,17 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples, max_frames=None):
     (result, launch counts, number of chunks)."""
     import torch
 
-    from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
-    from cova_tpu_torch.ops.cuda.nms_kernel import nms
     from cova_tpu_torch.pipeline.cova import CovaPipeline
 
     pipe = CovaPipeline(str(mp4), str(out), cfg, sd, device=device, log=log)
     if device == "cuda":
         pipe.warmup()
         torch.cuda.synchronize()
-    connected_components.launches = 0
-    nms.launches = 0
+    _launches(reset=True)
     res = pipe.run(max_frames)
     if device == "cuda":
         torch.cuda.synchronize()
-    launches = {"cc_label": connected_components.launches, "nms": nms.launches}
+    launches = _launches()
     tm = res.timers
     log(
         f"[{tag}] pipeline on {device}: {res.num_frames} frames in "
@@ -968,25 +1248,46 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples, max_frames=None):
     return res, launches, pipe.num_chunks
 
 
-# Fields a range of phase 4's run: two chunks of F=128 windows (T=4), so
-# the device SORT's state crosses a chunk; the clip's 300 would take three
-# (the device SORT costs about 30 s a chunk, PERF.md §5).
-PHASE4_FIELDS = 2 * 128 + 3
+def _same_csvs(tag, out, ref, res, cpu) -> None:
+    """The four CSVs of two pipeline runs byte-identical, and their
+    counts equal."""
+    for name in CSVS:
+        if (out / f"{name}.csv").read_bytes() != (ref / f"{name}.csv").read_bytes():
+            raise AssertionError(f"[{tag}] {name}.csv: card run differs from the CPU run")
+    for key in ("dropped", "decoded_dependency", "decoded_inference", "dead_tracks"):
+        if getattr(res, key) != getattr(cpu, key):
+            raise AssertionError(
+                f"[{tag}] {key}: card {getattr(res, key)} != CPU {getattr(cpu, key)}"
+            )
 
 
 def phase4_pipeline(mp4, samples, tmp) -> tuple:
     """CovaPipeline(device="cuda") with host_tracking=False end to end on
-    the first PHASE4_FIELDS fields of each range; returns (result, launch
-    counts)."""
+    the whole clip, K7 launched once a chunk; then the same on the CPU:
+    the four CSVs byte-identical and the counts equal. Returns (the card's
+    result, its launch counts)."""
     _, sd, meta = _demo_weights("cpu")
-    res, launches, n_chunks = _run_pipeline(
-        "4", mp4, tmp / "out4", _pipeline_cfg(meta, False), sd, "cuda", samples,
-        PHASE4_FIELDS
-    )
+    cfg = _pipeline_cfg(meta, False)
+    res, launches, n_chunks = _run_pipeline("4", mp4, tmp / "out4", cfg, sd, "cuda", samples)
     if launches["cc_label"] < n_chunks:
         raise AssertionError(
             f"cc_label launched {launches['cc_label']} times for {n_chunks} chunks"
         )
+    if launches["sort_scan"] != n_chunks:
+        raise AssertionError(
+            f"sort_scan launched {launches['sort_scan']} times for {n_chunks} chunks"
+        )
+    from cova_tpu_torch.ops.assignment import solve_assignment_overflow as auction
+
+    rounds0 = auction.rounds
+    cpu, _, _ = _run_pipeline("4", mp4, tmp / "out4cpu", cfg, sd, "cpu", samples)
+    rounds = auction.rounds - rounds0
+    _same_csvs("4", tmp / "out4", tmp / "out4cpu", res, cpu)
+    lane_windows = cfg.parallel.num_ranges * n_chunks * cfg.compressed.batch_frames
+    log(f"[4] the four CSVs of the card run (K7) equal the CPU run's (the plain SORT), byte "
+        f"for byte; sort_scan launches {launches['sort_scan']} for {n_chunks} chunks; the CPU "
+        f"run took {cpu.elapsed_seconds:.3f} s, its auction {rounds} rounds "
+        f"({rounds / lane_windows:.2f} a lane and window)")
     return res, launches
 
 
@@ -1067,18 +1368,9 @@ def phase6_default_pipeline(mp4, samples, tmp, phase4) -> None:
     cfg = _pipeline_cfg(meta, True)
     res, launches, _ = _run_pipeline("6", mp4, tmp / "out6", cfg, sd, "cuda", samples)
     cpu, _, _ = _run_pipeline("6", mp4, tmp / "out6cpu", cfg, sd, "cpu", samples)
-    for name in CSVS:
-        a = (tmp / "out6" / f"{name}.csv").read_bytes()
-        b = (tmp / "out6cpu" / f"{name}.csv").read_bytes()
-        if a != b:
-            raise AssertionError(f"{name}.csv: card run differs from the CPU run")
-    for key in ("dropped", "decoded_dependency", "decoded_inference", "dead_tracks"):
-        if getattr(res, key) != getattr(cpu, key):
-            raise AssertionError(
-                f"{key}: card {getattr(res, key)} != CPU {getattr(cpu, key)}"
-            )
+    _same_csvs("6", tmp / "out6", tmp / "out6cpu", res, cpu)
     log("[6] the four CSVs of the card run equal the CPU run's, byte for byte")
-    for label, r_ in ((f"phase 4 (device tracking, {PHASE4_FIELDS} fields a range)", phase4),
+    for label, r_ in (("phase 4 (device tracking, the whole clip)", phase4),
                       ("phase 6 (host tracking)", res)):
         log(
             f"[6] {label}: dead tracks {r_.dead_tracks}, dropped {r_.dropped}, "
@@ -1671,10 +1963,9 @@ def phase9_query(tmp: pathlib.Path) -> None:
 
 
 # Phase 10's cut of the profile's defaults (R=8, F=128, pipelined runs
-# of 8 chunks, three times): the device SORT is host-bound, about 0.1 s a
-# window on this render (PERF.md §5). Its 5 runs a probe stay: one run's
-# host-clock time of a SORT probe spreads by a fifth or more.
-PROFILE_F = 16
+# of 8 chunks, three times): one pipelined run of 2 chunks. The chunk is
+# the CLI's F=128, 5 runs a probe.
+PROFILE_F = 128
 PROFILE_REPS = 5
 PROFILE_PIPELINED_CHUNKS = 2
 PROFILE_FRONT_REPS = 20
@@ -1685,7 +1976,7 @@ def phase10_profile() -> int:
     (examples/profile_device.py: R=8, F=PROFILE_F, PROFILE_REPS) with K1, then
     the masks, +labels and +stats probes with the plain labelling on the
     card; every probe's scalar equal to the same probe on the CPU on the
-    same chunk. Returns K1's launches in the profile's run."""
+    same chunk. Returns the launches of K1 and K7 in the profile's run."""
     import torch
 
     from cova_tpu_torch.examples.profile_device import (
@@ -1703,13 +1994,15 @@ def phase10_profile() -> int:
     def plog(line):
         log(f"[10] {line}")
 
-    connected_components.launches = 0
+    _launches(reset=True)
     res = profile(device="cuda", reps=PROFILE_REPS, cc_backend="cuda", batch_frames=PROFILE_F,
                   pipelined_chunks=PROFILE_PIPELINED_CHUNKS, pipelined_runs=1, log=plog)
     torch.cuda.synchronize()
-    launches = connected_components.launches
-    if launches == 0:
-        raise AssertionError("the profile with --cc-backend cuda launched K1 no time")
+    counts = _launches()
+    launches = counts["cc_label"]
+    if launches == 0 or counts["sort_scan"] == 0:
+        raise AssertionError(f"the profile with --cc-backend cuda launched {counts}: K1 and "
+                             "K7 must run")
     # The masks, +labels and +stats probes again, with K1 and with the
     # plain labelling, PROFILE_FRONT_REPS times each: one run's host-clock
     # delta of a labelling that takes well under a millisecond is noise.
@@ -1725,9 +2018,13 @@ def phase10_profile() -> int:
     model, _, meta = load_artifact(DEMO_WEIGHTS, "cpu")
     cfg = profile_cfg(meta, PROFILE_F)
     probes = make_probes(model, cfg, torch.from_numpy(load_chunk(SYNTH_RENDER, cfg)), "auto")
-    t0 = time.perf_counter()
+    from cova_tpu_torch.ops.assignment import solve_assignment_overflow as auction
+
+    t0, rounds0 = time.perf_counter(), auction.rounds
     cpu = {name: probes[name]().item() for name in PROBES}
-    log(f"[10] the probes on the CPU ({time.perf_counter() - t0:.3f} s): {cpu}")
+    rounds = auction.rounds - rounds0
+    log(f"[10] the probes on the CPU ({time.perf_counter() - t0:.3f} s): {cpu}; the +sort "
+        f"probe's auction {rounds} rounds ({rounds / (8 * PROFILE_F):.2f} a lane and window)")
     log(f"[10] the probes on the card, K1: {res['values']}; plain labelling: {plain['values']}")
     for name in PROBES:
         for label, values in (("K1", res["values"]), ("K1", k1["values"]),
@@ -1740,13 +2037,14 @@ def phase10_profile() -> int:
         f"{(s['+sort'] - s['+stats']) / s['+sort']:.4f} of the chunk's device program (+sort); "
         f"+sort starts from the fresh SORT state each time and full+pull carries its state, as "
         f"in the JAX profile, so their difference is not the transfer's cost alone; pipelined "
-        f"{res['pipelined_fps']:.1f} frames/s; K1 launches {launches}")
+        f"{res['pipelined_fps']:.1f} frames/s; K1 launches {launches}, K7 launches "
+        f"{counts['sort_scan']}")
     for label, r_ in (("K1", k1), ("plain", plain)):
         s = r_["seconds"]
         log(f"[10] medians of {PROFILE_FRONT_REPS}, {label}: masks {s['masks'] * 1e3:.4f} ms, "
             f"labelling {(s['+labels'] - s['masks']) * 1e3:.4f} ms, stats "
             f"{(s['+stats'] - s['+labels']) * 1e3:.4f} ms inside the program")
-    return launches
+    return launches, counts["sort_scan"]
 
 
 SOAK_REPS = 10
@@ -1899,12 +2197,13 @@ def _dp_check(ranks) -> str:
 
 def phase12_multi_device() -> int:
     """Multi-device on the one card: (a) the sharded masks step (R=8,
-    F=128) and the sharded all-device stage (F=16) over the mesh
-    [cuda:0, cuda:0], bit for bit equal to the one-device stage; (b) the
-    data-parallel train step at full width, two ranks on cuda:0, against
-    the one-device step on the global batch; (c) dryrun_multichip on the
-    card. (b) and (c) run in their own processes, side by side, after
-    (a). Returns K1's launches in the sharded stage's runs."""
+    F=128) and the sharded all-device stage (F=128) over the mesh
+    [cuda:0, cuda:0], bit for bit equal to the one-device stage, with the
+    ratio of their times; (b) the data-parallel train step at full width,
+    two ranks on cuda:0, against the one-device step on the global batch;
+    (c) dryrun_multichip on the card. (b) and (c) run in their own
+    processes, side by side, after (a). Returns the launches of K1 and K7
+    in the sharded stage's runs."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -1913,7 +2212,6 @@ def phase12_multi_device() -> int:
     from cova_tpu_torch.examples.profile_device import load_chunk, profile_cfg
     from cova_tpu_torch.graft_entry import dryrun_multichip
     from cova_tpu_torch.models.blobnet import load_artifact
-    from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
     from cova_tpu_torch.parallel.mesh import make_mesh
     from cova_tpu_torch.pipeline.compressed import CompressedStage
 
@@ -1931,33 +2229,44 @@ def phase12_multi_device() -> int:
     log(f"[12] (a) masks step R=8 F={cfg.compressed.batch_frames} over {len(mesh.devices)} "
         f"shards on cuda:0: {a.numel()} bytes equal to one device's")
     # Two chunks, the second on the carried SORT state; the second
-    # round's times are the warm ones.
-    part = np.ascontiguousarray(chunk[:, : PROFILE_F + cfg.video.timestep - 1])
-    launches, times = 0, []
+    # round's times are the warm ones. Each run's time to return from
+    # run_chunk (the host issuing the work) is read beside its time to the
+    # outputs on the host.
+    f = cfg.compressed.batch_frames
+    counts, times = {}, []
     for k in range(2):
-        ts0 = np.full(8, cfg.video.timestep - 1 + k * PROFILE_F * cfg.compressed.gamma, np.int32)
+        ts0 = np.full(8, cfg.video.timestep - 1 + k * f * cfg.compressed.gamma, np.int32)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = [x.cpu() for x in one.run_chunk(part, ts0)[:2]]
+        out = one.run_chunk(chunk, ts0)
+        i_one = time.perf_counter() - t0
+        ref = [x.cpu() for x in out[:2]]
         t_one = time.perf_counter() - t0
-        connected_components.launches = 0
+        _launches(reset=True)
         t0 = time.perf_counter()
-        got = [x.cpu() for x in two.run_chunk(part, ts0)[:2]]
-        times.append((t_one, time.perf_counter() - t0))
-        launches += connected_components.launches
+        out = two.run_chunk(chunk, ts0)
+        i_two = time.perf_counter() - t0
+        got = [x.cpu() for x in out[:2]]
+        times.append((t_one, time.perf_counter() - t0, i_one, i_two))
+        for name, n in _launches().items():
+            counts[name] = counts.get(name, 0) + n
         for name, g, r in zip(("packed", "masks"), got, ref):
             if not torch.equal(g, r):
                 raise AssertionError(f"sharded stage chunk {k} {name}: "
                                      f"{int((g != r).sum())} elements differ from one device")
-    if launches != 2 * mesh.size:
-        raise AssertionError(f"K1 launched {launches} times for 2 chunks of {mesh.size} shards")
-    (_, _), (t_one, t_two) = times
-    log(f"[12] (a) all-device stage R=8 F={PROFILE_F} over 2 shards on cuda:0 (the blocks run "
-        f"in series), two chunks (the second on the carried SORT state): packed "
-        f"{tuple(got[0].shape)} and masks equal to one device's, bit for bit; K1 launches "
-        f"{launches}; seconds a chunk, one device then two shards: "
-        f"{[[round(x, 4), round(y, 4)] for x, y in times]}; warm, two shards take "
-        f"{t_two / t_one:.3f} of one device's time")
+    launches = counts["cc_label"]
+    if launches != 2 * mesh.size or counts["sort_scan"] != 2 * mesh.size:
+        raise AssertionError(f"{counts} launches for 2 chunks of {mesh.size} shards: K1 and K7 "
+                             "must run once a shard and chunk")
+    t_one, t_two, i_one, i_two = times[1]
+    log(f"[12] (a) all-device stage R=8 F={f} over 2 shards on cuda:0, two chunks (the "
+        f"second on the carried SORT state): packed {tuple(got[0].shape)} and masks equal to "
+        f"one device's, bit for bit; K1 launches {launches}, K7 launches "
+        f"{counts['sort_scan']}; seconds a chunk to the outputs on the host, one device then "
+        f"two shards: {[[round(x[0], 4), round(x[1], 4)] for x in times]}; warm, two shards "
+        f"take {t_two / t_one:.3f} of one device's time; the host returned from run_chunk "
+        f"after {i_one:.4f} s (one device) and {i_two:.4f} s (two shards): it issues the "
+        f"blocks without waiting on the card")
 
     # (b) and (c) in their own processes, after (a)'s timed runs.
     with ThreadPoolExecutor(2) as pool:
@@ -1969,7 +2278,7 @@ def phase12_multi_device() -> int:
 
         # (c) the dry run.
         log(f"[12] (c) {dry.result()}")
-    return launches
+    return launches, counts["sort_scan"]
 
 
 SYNTH_RENDER_1080P = REPO / "cova_tpu_torch" / "data" / "synth_1800_1080p.mp4"
@@ -1980,12 +2289,14 @@ BENCH_DEVICE_REPS = 4
 
 
 def _launches(reset: bool = False) -> dict:
-    """The three kernels' launch counts; `reset` sets them to 0 after."""
+    """The four kernels' launch counts; `reset` sets them to 0 after."""
     from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
     from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk
     from cova_tpu_torch.ops.cuda.nms_kernel import nms
+    from cova_tpu_torch.ops.cuda.sort_kernel import sort_scan
 
-    wrappers = {"cc_label": connected_components, "nms": nms, "mog2": mog2_chunk}
+    wrappers = {"cc_label": connected_components, "nms": nms, "mog2": mog2_chunk,
+                "sort_scan": sort_scan}
     counts = {name: w.launches for name, w in wrappers.items()}
     if reset:
         for w in wrappers.values():
@@ -2073,13 +2384,7 @@ def phase14_1080p(tmp: pathlib.Path) -> None:
     launches = _launches()
     cpu, _, _ = _run_pipeline("14", SYNTH_RENDER_1080P, tmp / "out14cpu", cfg, sd, "cpu",
                               samples)
-    for name in CSVS:
-        if (tmp / "out14" / f"{name}.csv").read_bytes() != (
-                tmp / "out14cpu" / f"{name}.csv").read_bytes():
-            raise AssertionError(f"{name}.csv: the 1080p card run differs from the CPU run")
-    for key in ("dropped", "decoded_dependency", "decoded_inference", "dead_tracks"):
-        if getattr(res, key) != getattr(cpu, key):
-            raise AssertionError(f"{key}: card {getattr(res, key)} != CPU {getattr(cpu, key)}")
+    _same_csvs("14", tmp / "out14", tmp / "out14cpu", res, cpu)
     if any(launches.values()):
         raise AssertionError(f"the 1080p pipeline launched {launches}: its path runs no kernel")
     log(f"[14] the four CSVs of the card run equal the CPU run's, byte for byte, over all "
@@ -2123,7 +2428,7 @@ def main(argv=None) -> int:
     lap(1)
     floor = launch_floor_ms()
     records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor),
-               "mog2": phase2_mog2(floor)}
+               "mog2": phase2_mog2(floor), "sort_scan": phase2_sort(floor)}
     lap(2)
     if args.kernels_only:
         for rec in records.values():
@@ -2149,24 +2454,26 @@ def main(argv=None) -> int:
         phase6_default_pipeline(mp4, samples, tmp, res4)
         lap(6)
         records["cc_label"]["launches"] = launches["cc_label"]
+        records["sort_scan"]["launches"] = launches["sort_scan"]
         records["nms"]["launches"] = phase7_oracle(tmp)
         lap(7)
         records["mog2"]["launches"] = phase8_training(mp4, tmp)
         lap(8)
         phase9_query(tmp)
         lap(9)
-        k1_profile = phase10_profile()
+        k1_profile, k7_profile = phase10_profile()
         lap(10)
         phase11_soak(tmp)
         lap(11)
-        k1_sharded = phase12_multi_device()
+        k1_sharded, k7_sharded = phase12_multi_device()
         lap(12)
         phase13_bench()
         lap(13)
         phase14_1080p(tmp)
         lap(14)
         log(f"K1 launches: phase 4 (the main path) {launches['cc_label']}, phase 10 (profile) "
-            f"{k1_profile}, phase 12 (sharded stage) {k1_sharded}")
+            f"{k1_profile}, phase 12 (sharded stage) {k1_sharded}; K7 launches: phase 4 "
+            f"{launches['sort_scan']}, phase 10 {k7_profile}, phase 12 {k7_sharded}")
     log(f"smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": _kernel_lines(records)}))
     print(smi)

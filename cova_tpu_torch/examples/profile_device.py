@@ -9,7 +9,7 @@ The default pipeline runs host_tracking=True (the device runs
 metapreprocess + BlobNet + threshold; CC + SORT run natively on the
 host). The all-device variant (host_tracking=False,
 compressed_stage_step) keeps CC (the CUDA kernel K1) and the SORT scan
-on the device. This profile breaks one chunk of it (R=8 GoP ranges of
+(the CUDA kernel K7) on the device. This profile breaks one chunk of it (R=8 GoP ranges of
 the input, F=128 windows, the blobnet_demo artifact's input contract,
 cc_threshold 3) into cumulative probes, each timed between
 torch.cuda.synchronize() calls (median of --reps after a warm-up):

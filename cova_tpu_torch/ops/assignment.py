@@ -12,7 +12,8 @@ column in parallel each round; each column goes to its highest bidder
   JAX runs it as a vmapped while_loop, in which each lane stops on its
   own condition; here the lanes share one Python loop and a lane is
   frozen once its own condition is false, so every lane's result equals
-  a solo run.
+  a solo run. It counts the rounds it runs (an instrument; nothing reads
+  the counts to decide anything).
 """
 
 from __future__ import annotations
@@ -149,7 +150,11 @@ def solve_assignment_overflow(
     `max_iters` fall to overflow.
 
     Returns (L, MT) int64: the matched column, or -1 for overflow and
-    masked-out rows."""
+    masked-out rows.
+
+    Adds the rounds each lane ran to `solve_assignment_overflow.rounds`,
+    and the rows that searched for a column in them (the unassigned
+    rows of each round) to `solve_assignment_overflow.row_rounds`."""
     nl, mt, md = cost.shape
     dev = cost.device
     profit = torch.where(
@@ -165,6 +170,7 @@ def solve_assignment_overflow(
     c2r = torch.full((nl, md), -1, dtype=torch.long, device=dev)
     prices = torch.zeros((nl, md), dtype=torch.float32, device=dev)
     cols = torch.arange(md, device=dev)
+    rounds = torch.zeros((2,), dtype=torch.int64, device=dev)
 
     # Round k runs for the lanes still live; none runs more than
     # max_iters rounds, as in JAX's per-lane while_loop bound.
@@ -173,6 +179,7 @@ def solve_assignment_overflow(
         if k % _CHECK_EVERY == 0 and not bool(live.any()):
             break
         unassigned = r2c < 0
+        rounds += torch.stack([live.sum(), unassigned.sum()])
         value = profit - prices[:, None, :]  # (L, MT, MD)
         best_v = value.max(dim=2).values
         best_j = value.argmax(dim=2)  # first index on ties
@@ -212,4 +219,11 @@ def solve_assignment_overflow(
         r2c = torch.where(live[:, None], n_r2c, r2c)
         c2r = torch.where(live[:, None], n_c2r, c2r)
         prices = torch.where(live[:, None], n_prices, prices)
+    lane_rounds, row_rounds = rounds.tolist()
+    solve_assignment_overflow.rounds += lane_rounds
+    solve_assignment_overflow.row_rounds += row_rounds
     return torch.where((r2c >= 0) & (r2c < md), r2c, -1)
+
+
+solve_assignment_overflow.rounds = 0
+solve_assignment_overflow.row_rounds = 0

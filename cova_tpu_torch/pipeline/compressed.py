@@ -8,7 +8,7 @@ variant (`compressed_stage_step`, host_tracking=False):
     -> temporal stack + clip normalize          (gather)
     -> BlobNet                                   (batched over R*F)
     -> threshold -> connected components -> boxes (CUDA kernel + torch stats)
-    -> SORT                                      (loop over F, batched over R)
+    -> SORT                                      (CUDA kernel: the F windows, all R)
     -> packed per-slot outputs (R, F, MT, 30) u8 for the host mirror
 
 and in the default host-tracking variant (`compressed_masks_step`)
@@ -31,9 +31,10 @@ import torch
 from cova_tpu_torch.config import CovaConfig, SortConfig
 from cova_tpu_torch.models.blobnet import BlobNet
 from cova_tpu_torch.ops.cc import mask_to_boxes
+from cova_tpu_torch.ops.cuda.sort_kernel import sort_scan
 from cova_tpu_torch.ops.preprocess import metapreprocess, unpack_wire16
 from cova_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
-from cova_tpu_torch.tracker.sort import SortOutputs, SortState, sort_init, sort_step
+from cova_tpu_torch.tracker.sort import SortOutputs, SortState, sort_init
 from cova_tpu_torch.types import MAX_BOXES_PER_FRAME, Boxes
 
 
@@ -66,15 +67,6 @@ def compressed_probs(
     return probs.reshape(r, f, h, w)
 
 
-def _where_lane(live: torch.Tensor, new, old):
-    """Per lane, the fields of `new` where `live`, else those of `old`."""
-    out = {}
-    for fld in dataclasses.fields(new):
-        a, b = getattr(new, fld.name), getattr(old, fld.name)
-        out[fld.name] = torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, b)
-    return type(new)(**out)
-
-
 def track_chunk(
     sort_state: SortState,
     boxes: Boxes,  # leading dims (R, F)
@@ -86,21 +78,12 @@ def track_chunk(
     """SORT over the F windows of a chunk, every range at once. Window i
     carries frame index ts0 + i*gamma; windows at or past a range's nwin
     (a short range's zero-padding tail) leave its state untouched.
-    Returns the new state and the outputs stacked to (R, F, ...)."""
-    f = boxes.valid.shape[1]
-    state = sort_state
-    outs = []
-    for i in range(f):
-        st2, out = sort_step(state, boxes.map(lambda a: a[:, i]), ts0 + i * gamma, cfg)
-        state = _where_lane(i < nwin, st2, state)
-        outs.append(out)
-    stacked = SortOutputs(
-        **{
-            fld.name: torch.stack([getattr(o, fld.name) for o in outs], dim=1)
-            for fld in dataclasses.fields(SortOutputs)
-        }
-    )
-    return state, stacked
+    Returns the new state and the outputs stacked to (R, F, ...).
+
+    On the card this is one launch of the SORT kernel (K7,
+    ops/cuda/sort_kernel.py); on the CPU its plain version, a loop of
+    `sort_step`s."""
+    return sort_scan(sort_state, boxes, ts0, nwin, gamma, cfg)
 
 
 def compressed_stage_step(
@@ -274,12 +257,13 @@ class CompressedStage:
     are joined in range order on `device`, equal to the one-device
     stage's. num_ranges must divide by the mesh's size.
 
-    The blocks run in series: each block's step ends before the next
-    one's is issued, because the device SORT reads its auction's stopping
-    condition on the host every few rounds. The step is bound by the
-    host's kernel launches, which one process cannot spread over threads
-    (a thread a block ran two shards on one H100 at about twice the
-    serial time, PERF.md), so the stage does not yet scale over cards."""
+    The blocks are uploaded first, then their steps issued one after
+    another from this thread, each on its device's current stream. No
+    step waits for the device: BlobNet, the labelling, the box stats and
+    the tracker (one launch of the SORT kernel K7 a block, no host
+    synchronisation inside it) are all queued, so blocks on different
+    cards run at the same time. `run_chunk` returns device tensors; the
+    caller's copy to the host is the first wait."""
 
     def __init__(
         self,
