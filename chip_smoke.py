@@ -3,17 +3,18 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --k7-split]
 
-Phases (--kernels-only stops after phase 2); the seconds each took are
-printed as it ends:
+Phases (--kernels-only stops after phase 2; --k7-split runs phases 0-1
+and then only K7's four timed inputs, for timing two checkouts in turns
+in one call); the seconds each took are printed as it ends:
   0  the card, the software versions;
   1  builds every CUDA kernel of the port from the sources in the
      checkout (the CC, NMS, MOG2 and SORT kernels, one nvcc each, all at
      once), and the port's codec library; prints what ptxas says of each
      kernel (registers, spills) and, from `cuobjdump -sass`, the MOG2
-     kernel's instruction counts (the listing goes beside the built
-     library);
+     and SORT kernels' instruction counts and atomics (the listing goes
+     beside the built library);
   2  holds each kernel against its plain PyTorch version on the card,
      every case three times: CC labels, the four NMS outputs, the MOG2
      foreground and state, and the SORT scan's (K7) state and outputs
@@ -25,11 +26,15 @@ printed as it ends:
      equal, their first 16 windows equal to the plain version's); the
      MOG2 kernel's short division against `__fdiv_rn` over 7 * 2^26
      seeded pairs and the edges; times each kernel at the main path's
-     shapes as device time per launch (a CUDA graph of 100 launches, 2
-     for K7, no host time between them), as the wrapper's time per call
-     (host time included), against its plain version (K7's on the
-     chunk's first 16 windows), its bound and the launch floor (a
-     one-element torch op timed as the kernels are);
+     shapes as device time per launch (a CUDA graph of 100 launches, for
+     K7 of 2 to 100 by its time, no host time between them), as the
+     wrapper's time per call (host time included), against its plain
+     version (K7's on the chunk's first 16 windows), its bound and the
+     launch floor (a one-element torch op timed as the kernels are); K7
+     alone on four inputs (the production chunk, seeded random boxes, an
+     empty chunk whose auction runs no round, the synth render's first
+     chunk): its auction rounds a lane and window, a window's cost at 0
+     rounds, and a round of a lane;
   3  the all-device compressed stage on a seeded chunk (R=8, F=128, T=4):
      the whole stage on two chunks and its parts, a small chunk against
      the CPU (the SORT bit for bit);
@@ -207,6 +212,7 @@ def phase1_build() -> None:
         log(f"[1] built {label} in {dt:.3f} s")
     log(f"[1] all builds in {time.perf_counter() - t0:.3f} s")
     _sass_counts(_build.build("mog2_kernel"))
+    _sass_counts(_build.build("sort_kernel"))
 
 
 def _sass_counts(lib: pathlib.Path) -> None:
@@ -214,8 +220,9 @@ def _sass_counts(lib: pathlib.Path) -> None:
     the whole kernel, and the address range of its widest loop (from the
     target of a backward branch to the branch; for the MOG2 kernel the
     loop over frames, rare branches placed inside it included), with the
-    reciprocals, range checks, calls and branches in it. The listing is
-    written beside the library, as <lib>.sass."""
+    reciprocals, range checks, calls and branches in it; and the kernel's
+    atomic instructions. The listing is written beside the library, as
+    <lib>.sass."""
     import re
 
     from cova_tpu_torch.ops.cuda import _build
@@ -242,6 +249,9 @@ def _sass_counts(lib: pathlib.Path) -> None:
             kinds = {k: sum(op.startswith(k) for op in body)
                      for k in ("MUFU", "FCHK", "CALL", "BRA", "FFMA", "FSEL", "FSETP")}
             text += f", {len(body)} in its widest loop ({kinds})"
+        atomics = sorted({op for _, op, _ in ins if op.startswith("ATOM")})
+        if atomics:
+            text += f"; atomics {atomics}"
         log(text)
 
 
@@ -278,11 +288,14 @@ SORT_PAIR_OPS = 26
 SORT_ROW_OPS_PER_BOX = 3
 SORT_ROW_OPS = 4
 SORT_UPDATE_OPS = 2296
-# K7 takes up to a second a launch on the production chunk, whose
-# auction runs to max_iters in most windows: a graph of 2 launches times
-# it. The plain version (host-bound: about 1.3 s a window there) is held
-# to it and timed on SORT_CHECK_F windows a case.
+# K7 takes a tenth of a second or more a launch on the production chunk,
+# whose auction runs to max_iters in most windows: a graph of at least 2
+# launches times it, and of as many as fill about SORT_GRAPH_MS (at most
+# GRAPH_LAUNCHES) on a shorter input. The plain version (host-bound:
+# about 1.3 s a window there) is held to it and timed on SORT_CHECK_F
+# windows a case.
 SORT_GRAPH_LAUNCHES = 2
+SORT_GRAPH_MS = 500.0
 SORT_CHECK_F = 16
 # Launches in one timed CUDA graph, and times each check is repeated (a
 # race in the kernel's atomics shows as a difference between repeats).
@@ -944,6 +957,75 @@ def _k7_counts(r, f):
     return tuple(torch.zeros((r, f), dtype=torch.int32, device="cuda") for _ in range(2))
 
 
+def _synth_boxes():
+    """Phase 10's chunk of the committed synth render (R=8, F=PROFILE_F,
+    the demo weights, TF32 off) through BlobNet on the card, then
+    `mask_to_boxes`: (boxes, SortConfig, gamma)."""
+    import torch
+
+    from cova_tpu_torch.examples.profile_device import load_chunk, profile_cfg
+    from cova_tpu_torch.ops.cc import mask_to_boxes
+    from cova_tpu_torch.pipeline.compressed import compressed_probs, exact_float32
+
+    exact_float32("cuda")
+    model, _, meta = _demo_weights("cuda")
+    cfg = profile_cfg(meta, PROFILE_F)
+    chunk = torch.as_tensor(load_chunk(SYNTH_RENDER, cfg), device="cuda")
+    masks = compressed_probs(model, cfg, chunk) > cfg.compressed.mask_threshold
+    return mask_to_boxes(masks, cfg.compressed.cc_threshold), cfg.sort, cfg.compressed.gamma
+
+
+def _k7_split(cfg, boxes, state, ts0, nwin) -> list:
+    """K7 alone on four inputs, each timed as device ms a launch (a CUDA
+    graph of launches, CUDA events): the production chunk, seeded random
+    boxes (30 % of the slots valid), an empty chunk (no valid box, a
+    fresh state: its auction runs no round, so its time is the fixed cost
+    of F windows, less the predicts) and the committed synth render's
+    first chunk (phase 10's). A round of a lane: the time less the empty
+    chunk's, over the mean lane's rounds (and over the slowest lane's,
+    which ends the launch). Returns a record for each input."""
+    import numpy as np
+
+    from cova_tpu_torch.ops.cuda.sort_kernel import sort_scan
+
+    r, f, md = boxes.valid.shape
+    synth, synth_cfg, synth_gamma = _synth_boxes()
+    inputs = [
+        ("production", boxes, cfg.sort, 1),
+        ("seeded random boxes, 30 % valid", _whole_boxes(np.random.default_rng(SEED), r, f, md, 0.3),
+         cfg.sort, 1),
+        ("empty (no valid box)", _whole_boxes(np.random.default_rng(SEED), r, f, md, 0.0),
+         cfg.sort, 1),
+        ("synth render's first chunk", synth, synth_cfg, synth_gamma),
+    ]
+    recs = []
+    for label, b, scfg, gamma in inputs:
+        rounds, searches = _k7_counts(r, f)
+        sort_scan(state, b, ts0, nwin, gamma, scfg, rounds=rounds, searches=searches)
+        one = cuda_ms(lambda: sort_scan(state, b, ts0, nwin, gamma, scfg), reps=1)
+        n = max(SORT_GRAPH_LAUNCHES, min(GRAPH_LAUNCHES, int(SORT_GRAPH_MS / max(one, 1e-3))))
+        ms = graph_ms(lambda: sort_scan(state, b, ts0, nwin, gamma, scfg), launches=n, replays=3)
+        lane = rounds.sum(dim=1)
+        recs.append({"label": label, "ms": ms, "launches": n, "rounds": int(lane.sum()),
+                     "searches": int(searches.sum()), "mean_lane": float(lane.sum()) / r,
+                     "slowest_lane": int(lane.max()), "valid": int(b.valid.sum())})
+    empty_ms = recs[2]["ms"]
+    for rec in recs:
+        text = (f"[2] sort_scan split, {rec['label']} (R={r} F={f} MD={md}, {rec['valid']} valid "
+                f"boxes): {rec['ms']:.4f} ms a launch (graph of {rec['launches']}); auction "
+                f"rounds {rec['rounds']}, {rec['mean_lane'] / f:.2f} a lane and window "
+                f"(slowest lane {rec['slowest_lane'] / f:.2f}), searches {rec['searches']} "
+                f"({rec['searches'] / max(rec['rounds'], 1):.2f} a round); a window at 0 rounds "
+                f"{empty_ms / f:.6f} ms (the empty chunk over F)")
+        if rec["rounds"]:
+            extra = rec["ms"] - empty_ms
+            text += (f"; a round of a lane {extra / rec['mean_lane'] * 1e3:.4f} us (slowest lane "
+                     f"{extra / rec['slowest_lane'] * 1e3:.4f} us), the rounds "
+                     f"{extra / rec['ms']:.4f} of the launch")
+        log(text)
+    return recs
+
+
 def phase2_sort(floor: float) -> dict:
     """Every K7 case against the plain version on the card: every output
     and state field bit for bit and the auction's rounds and searches
@@ -1029,8 +1111,8 @@ def phase2_sort(floor: float) -> dict:
                              "differ from the plain version's")
     lane_rounds, row_rounds = int(rounds.sum()), int(searches.sum())
     nbytes, ops = _sort_bytes_ops(boxes, state, k_out, row_rounds)
-    dev_ms = graph_ms(lambda: sort_scan(state, boxes, ts0, nwin, 1, cfg.sort),
-                      launches=SORT_GRAPH_LAUNCHES, replays=3)
+    split = _k7_split(cfg, boxes, state, ts0, nwin)
+    dev_ms = split[0]["ms"]
     call_ms = cuda_ms(lambda: sort_scan(state, boxes, ts0, nwin, 1, cfg.sort), reps=2)
     plain_ms = first[2]
     bound, by = bound_ms(nbytes, ops, OPS_PER_S_NO_FMA)
@@ -1039,22 +1121,10 @@ def phase2_sort(floor: float) -> dict:
         f"version's; auction rounds {lane_rounds} ({lane_rounds / (r * f):.2f} a lane and window, "
         f"at most {int(rounds.max())}), searches {row_rounds}; {int(k_out.matched_det.ge(0).sum())} "
         f"matches, {int(k_out.death.sum())} deaths, {int(k_state.id_counter.sum())} ids; device "
-        f"{dev_ms:.4f} ms a launch (graph of {SORT_GRAPH_LAUNCHES}; launch floor {floor:.5f}), "
+        f"{dev_ms:.4f} ms a launch (graph of {split[0]['launches']}; launch floor {floor:.5f}), "
         f"wrapper call {call_ms:.4f} ms, plain {plain_ms:.4f} ms on the first {SORT_CHECK_F} "
         f"windows, bound {bound:.6f} ms by {by} ({nbytes} bytes, {ops} operations), "
-        f"{bound / dev_ms:.4%} of it; {dev_ms / (r * f):.5f} ms a lane-window, "
-        f"{dev_ms / max(lane_rounds / r, 1):.6f} ms a round of a lane")
-    # K7 on seeded random boxes (30 % of the slots valid), beside the
-    # production chunk: its time a round where the boxes rarely overlap.
-    rand = _whole_boxes(np.random.default_rng(SEED), r, f, boxes.valid.shape[2], 0.3)
-    rounds, searches = _k7_counts(r, f)
-    sort_scan(state, rand, ts0, nwin, 1, cfg.sort, rounds=rounds, searches=searches)
-    rand_ms = cuda_ms(lambda: sort_scan(state, rand, ts0, nwin, 1, cfg.sort), reps=3)
-    log(f"[2] sort_scan on seeded random boxes R={r} F={f}, 30 % valid: {rand_ms:.4f} ms a call "
-        f"(CUDA events, median of 3), auction rounds {int(rounds.sum())} "
-        f"({int(rounds.sum()) / (r * f):.2f} a lane and window), searches "
-        f"{int(searches.sum())}, {rand_ms / max(int(rounds.sum()) / r, 1):.6f} ms a round of a "
-        f"lane")
+        f"{bound / dev_ms:.4%} of it")
     route, source, replaces = KERNELS["sort_scan"]
     return {"name": "sort_scan", "route": route, "source": source, "replaces": replaces,
             "max_abs_err": max_err, "library_ms": None, "device_ms": dev_ms, "ms": call_ms,
@@ -2405,6 +2475,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 0-2 only: build, check and time the kernels, print "
                          "their JSON line (launches null) and stop, with no ok line")
+    ap.add_argument("--k7-split", action="store_true",
+                    help="phases 0-1, then K7 alone on its four timed inputs (no "
+                         "check against the plain version), and stop, with no ok line: "
+                         "for timing two checkouts in turns in one call")
     args = ap.parse_args(argv)
     if not (REPO / "cova_tpu_torch").is_dir() or not (REPO / "cova_tpu").is_dir():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
@@ -2426,6 +2500,18 @@ def main(argv=None) -> int:
     smi = phase0_environment()
     phase1_build()
     lap(1)
+    if args.k7_split:
+        from cova_tpu_torch.ops.cc import mask_to_boxes
+        from cova_tpu_torch.tracker.sort import sort_init
+
+        cfg, masks = _production_masks()
+        boxes = mask_to_boxes(masks, cfg.compressed.cc_threshold)
+        r, f = boxes.valid.shape[:2]
+        ts0 = torch.full((r,), cfg.video.timestep - 1, dtype=torch.int32, device="cuda")
+        nwin = torch.full((r,), f, dtype=torch.int32, device="cuda")
+        _k7_split(cfg, boxes, sort_init(cfg.sort.max_tracks, r, "cuda"), ts0, nwin)
+        print(smi, flush=True)
+        return 0
     floor = launch_floor_ms()
     records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor),
                "mog2": phase2_mog2(floor), "sort_scan": phase2_sort(floor)}

@@ -20,36 +20,66 @@
 // is the limit. The work is a recurrence: each window's step needs the
 // previous window's state, and each auction round the previous round's
 // prices; the lanes are independent, but there are only R of them. What
-// bounds the kernel is latency: F steps in series a lane, each a chain of
-// barriers (three a round of the auction), on R of the card's 132 SMs.
+// bounds the kernel is latency: a chain of auction rounds in series, up to
+// max_iters a window, F windows a lane, on R of the card's 132 SMs, where
+// the rounds are 93-99.9 % of a launch. So the design shortens a round,
+// and spreads what a window does besides the rounds over the whole block.
 //
-// Design: one block a lane (a range), its threads the track slots (thread
-// i owns slot i) and, for the auction's column step and the births, the
-// detections (thread j < MD owns detection j). The lane's state stays on
-// chip for the whole chunk: a slot's ints and its mean in the owning
-// thread's registers, its covariance (49 floats) in shared memory beside a
-// second 49-float work area, so a window past the lane's real windows
-// (`nwin`) can compute its outputs without touching the state. A window:
-//  - the detections' boxes and measurements land in shared memory, and
-//    every slot predicts (Kalman) and writes its IoU-based profit row;
-//  - the auction, in rounds of three steps with a barrier between them:
-//    (1) every unassigned row finds its best column (the first on ties),
-//    the best value among the others floored at the overflow value, and
-//    its bid, or exits to overflow when the best is no better than it;
-//    (2) every column takes its highest bid, the lowest row on ties, and
-//    records its new owner and price; (3) every row that owned a column
-//    that was bid for loses it, then every winner takes its column. The
-//    block stops when __syncthreads_count(row unassigned) is 0 or after
-//    max_iters rounds, as each lane's own while_loop does;
+// Design: one block of 256 threads a lane (a range). Thread i owns track
+// slot i, thread j < MD detection j; every thread takes a share of the
+// window's pairs. The lane's state stays on chip for the whole chunk: a
+// slot's ints and its mean in the owning thread's registers, its
+// covariance (49 floats) in shared memory beside a second 49-float work
+// area, so a window past the lane's real windows (`nwin`) can compute its
+// outputs without touching the state. A window:
+//  - its boxes were brought into one of two shared buffers by an
+//    asynchronous copy (cp.async, 4 bytes a thread and word) issued at the
+//    top of the window before, its valid flags by a load held in a
+//    register since then (a window's flags are MD bytes at any alignment,
+//    below cp.async's 4); the copy of the next window's boxes starts now,
+//    into the other buffer;
+//  - every slot thread predicts its slot (Kalman) and publishes the box;
+//    then the block computes the profit matrix, -(weight - IoU) for the
+//    pairs of an existing slot and a valid box, kNeg for the rest, a pair
+//    a thread in turn;
+//  - the auction, in rounds of two barriers: the __syncthreads_count of
+//    the unassigned rows, which also stops the lane (0, or max_iters
+//    rounds, as each lane's own while_loop does), and the one after the
+//    bids. Only the warps that hold a row or a column run a round's work;
+//    the others meet its two barriers and nothing else, so that they take
+//    no issue slots from the rows' warps. (1) Every unassigned row searches
+//    its row in one running pass: a value above the best moves the old
+//    best into `second`, any other value goes to fmaxf(second, v). That is
+//    the plain version's first argmax and masked maximum floored at the
+//    overflow value, since a maximum and a comparison round nothing. At
+//    the template widths (8 for graft_entry, 32 for the stage) the pass is
+//    unrolled over the profit row, held in registers for the whole
+//    auction; at any other width it reads shared memory. The row exits to
+//    overflow when the best is no better than it, or bids with one 64-bit
+//    atomicMax in shared memory at its column: key (bits(bid) << 32) |
+//    (0xFFFFFFFF - row). A bid is at least eps > 0, so its bits order as
+//    its value, and the highest key is the highest bid, the lowest row on
+//    ties: the plain version's argmax over the rows. 0 is below every key:
+//    a column with no bid. The keys alternate between two arrays by the
+//    round's parity, and a round clears the array of the round before it,
+//    so no third barrier is needed. (2) After the barrier every row
+//    resolves itself: a row that owned a column that got a key loses it,
+//    then a row whose key won takes its column and writes the column's
+//    price;
 //  - accept (IoU threshold), the Kalman update, the lifecycle and the
-//    deaths, the death snapshots before any birth;
-//  - births: block prefix sums (warp ballots) rank the unmatched valid
-//    detections and the free slots; the free slot of rank k takes the
-//    unmatched detection of rank k, for k below both counts, with the id
-//    id_counter + k;
+//    deaths, the death snapshots before any birth, a thread a slot;
+//  - births: each warp publishes the ballot of its unmatched valid
+//    detections and the count of its free slots; the free slot of rank k
+//    takes the unmatched detection of rank k, found from the ballots, for
+//    k below both counts, with the id id_counter + k;
 //  - the outputs of every window go to device memory; the state is kept
 //    only for windows below nwin.
-// One launch a chunk, no host synchronisation inside it.
+// Five barriers a window besides the rounds. One launch a chunk, no host
+// synchronisation inside it. What was tried on the H100 and left out: one
+// bid a column from each warp (__match_any_sync and __reduce_max_sync over
+// the column's lanes, or a full-warp __reduce_max_sync over the lowest
+// bidder's column) before the atomicMax, slower than the atomics'
+// contention it saves; the search as runs merged in a tree, no faster.
 //
 // Exactness: the plain version is held equal bit for bit. Every float
 // operation is an explicitly rounded intrinsic (__fadd_rn, __fsub_rn,
@@ -65,7 +95,6 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 
 // The launch's arguments, in the order ops/cuda/sort_kernel.py's _SortArgs
@@ -131,17 +160,20 @@ struct SortArgs {
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
 constexpr float kNeg = -1e9f;  // ops/assignment.py's _NEG
 constexpr int kHitStreakConfirm = 5;
 
-// Shared memory, in 4-byte words: the covariance and its work area, the
-// profit matrix (column-major, so a row's scan meets no bank conflict), the
-// detections' boxes and measurements, the auction's columns and bids, the
-// births' map and the scans' warp counts.
+// Shared memory, in 4-byte words: the auction's two key arrays (64-bit),
+// two windows' boxes, the measurements, the predicted boxes, the prices,
+// the covariance and its work area, the profit matrix (column-major, so a
+// row's loads meet no bank conflict), the detections' flags and ids, the
+// slots' flags, and the warps' birth ballots and counts.
 __host__ __device__ constexpr long shared_words(int mt, int md) {
-  return 2L * mt * 49 + (long)md * mt + 8L * md + 7L * md + 2L * mt + 2L * kMaxWarps;
+  return 4L * md + 8L * md + 4L * md + 4L * mt + md + 2L * mt * 49 + (long)md * mt + 3L * md +
+         mt + 2L * kWarps;
 }
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -153,8 +185,28 @@ __device__ __constant__ float kQ[7] = {1.0f, 1.0f, 1.0f, 1.0f, 0.01f, 0.01f, 0.0
 __device__ __constant__ float kR[4] = {1.0f, 1.0f, 10.0f, 10.0f};
 __device__ __constant__ float kP0[7] = {10.0f, 10.0f, 10.0f, 10.0f, 1e4f, 1e4f, 1e4f};
 
+// A 4-byte copy from device to shared memory that does not wait
+// (cp.async), and the wait for this thread's copies. A host compiler's
+// pass, which never runs them, sees a plain copy.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
 // ops/iou.py's iou_pairwise on half-open ltwh rectangles.
-__device__ __forceinline__ float iou(const float (&a)[4], const float* b) {
+__device__ __forceinline__ float iou(const float* a, const float* b) {
   const float ax2 = add(a[0], a[2]), ay2 = add(a[1], a[3]);
   const float bx2 = add(b[0], b[2]), by2 = add(b[1], b[3]);
   const float ix = fmaxf(sub(fminf(ax2, bx2), fmaxf(a[0], b[0])), 0.0f);
@@ -295,66 +347,104 @@ __device__ __forceinline__ void kalman_update(const float (&mp)[7], float* p, co
     }
 }
 
-// Exclusive ranks of two flags over the block's threads, and their totals.
-// Every thread of the block calls it; it ends after a barrier.
-__device__ __forceinline__ void block_ranks(bool fa, bool fb, int* s_warp, int& ra, int& rb,
-                                            int& na, int& nb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ba = __ballot_sync(0xffffffffu, fa), bb = __ballot_sync(0xffffffffu, fb);
-  const unsigned below = (1u << lane) - 1u;
-  if (lane == 0) {
-    s_warp[warp] = __popc(ba);
-    s_warp[kMaxWarps + warp] = __popc(bb);
+// A row's search at the template width MD, its profit row in registers:
+// the values profit - price, then one running pass. `second` starts at the
+// overflow value `ovf`.
+template <int MD>
+__device__ __forceinline__ void search_row(const float (&prow)[MD], const float* s_price, float ovf,
+                                           float& best, int& col, float& second) {
+  static_assert(MD % 4 == 0, "the prices are read four at a time");
+  float v[MD];
+  const float4* p4 = reinterpret_cast<const float4*>(s_price);
+#pragma unroll
+  for (int q = 0; q < MD / 4; ++q) {
+    const float4 p = p4[q];
+    v[4 * q] = sub(prow[4 * q], p.x);
+    v[4 * q + 1] = sub(prow[4 * q + 1], p.y);
+    v[4 * q + 2] = sub(prow[4 * q + 2], p.z);
+    v[4 * q + 3] = sub(prow[4 * q + 3], p.w);
   }
-  __syncthreads();
-  ra = __popc(ba & below);
-  rb = __popc(bb & below);
-  na = 0;
-  nb = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-    const int ca = s_warp[w], cb = s_warp[kMaxWarps + w];
-    if (w < warp) {
-      ra += ca;
-      rb += cb;
-    }
-    na += ca;
-    nb += cb;
+  best = v[0];
+  col = 0;
+  second = ovf;
+#pragma unroll
+  for (int j = 1; j < MD; ++j) {
+    const bool up = v[j] > best;
+    second = fmaxf(second, up ? best : v[j]);
+    col = up ? j : col;
+    best = up ? v[j] : best;
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads) sort_scan_kernel(const SortArgs a) {
-  extern __shared__ float smem[];
-  const int mt = a.mt, md = a.md, nf = a.frames;
+// The same search at a width known only at run time, over shared memory.
+__device__ __forceinline__ void search_row(const float* s_profit, int stride, const float* s_price,
+                                           int md, float ovf, float& best, int& col,
+                                           float& second) {
+  best = sub(s_profit[0], s_price[0]);
+  col = 0;
+  second = ovf;
+  for (int j = 1; j < md; ++j) {
+    const float v = sub(s_profit[j * stride], s_price[j]);
+    if (v > best) {
+      second = fmaxf(second, best);
+      best = v;
+      col = j;
+    } else {
+      second = fmaxf(second, v);
+    }
+  }
+}
+
+// The position of the k-th set bit (from 0) of m; k < popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(m & ((1u << s) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+// MD > 0: the detections a window, a compile-time width; 0: a.md, any.
+template <int MD>
+__global__ void __launch_bounds__(kThreads) sort_scan_kernel(const SortArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int mt = a.mt, md = MD > 0 ? MD : a.md, nf = a.frames;
   const int lane_idx = blockIdx.x;
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const bool slot = t < mt, det = t < md;
 
-  float* s_cov = smem;                       // mt * 49
-  float* s_work = s_cov + mt * 49;           // mt * 49
-  float* s_profit = s_work + mt * 49;        // md * mt, [j][i]
-  float* s_box = s_profit + md * mt;         // md * 4
-  float* s_z = s_box + md * 4;               // md * 4
-  float* s_price = s_z + md * 4;             // md
-  float* s_bid = s_price + md;               // mt
-  int* s_valid = reinterpret_cast<int*>(s_bid + mt);  // md
-  int* s_matched = s_valid + md;             // md
-  int* s_dtid = s_matched + md;              // md
-  int* s_rank2det = s_dtid + md;             // md
-  int* s_c2r = s_rank2det + md;              // md
-  int* s_colwin = s_c2r + md;                // md
-  int* s_bidcol = s_colwin + md;             // mt
-  int* s_warp = s_bidcol + mt;               // 2 * kMaxWarps
+  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(smem);  // 2 * md
+  float* s_box = smem + 4 * md;                            // 2 * md * 4, two windows
+  float* s_z = s_box + 8 * md;                             // md * 4
+  float* s_pred = s_z + 4 * md;                            // mt * 4
+  float* s_price = s_pred + 4 * mt;                        // md
+  float* s_cov = s_price + md;                             // mt * 49
+  float* s_work = s_cov + mt * 49;                         // mt * 49
+  float* s_profit = s_work + mt * 49;                      // md * mt, [j][i]
+  int* s_valid = reinterpret_cast<int*>(s_profit + md * mt);  // md
+  int* s_matched = s_valid + md;                           // md
+  int* s_dtid = s_matched + md;                            // md
+  int* s_slot = s_dtid + md;                               // mt: 1 exists, 2 active
+  unsigned* s_umask = reinterpret_cast<unsigned*>(s_slot + mt);  // kWarps
+  int* s_nfree = reinterpret_cast<int*>(s_umask + kWarps);       // kWarps
 
   // The lane's state: a slot's fields in its thread's registers, its
   // covariance in shared memory.
+  const long lb = (long)lane_idx * mt;
+  for (int q = t; q < mt * 49; q += kThreads) s_cov[q] = a.cov[lb * 49 + q];
   float mean[7] = {};
   bool exists = false, active = false;
   int tid = 0, start = 0, lastm = 0, hits = 0, hs = 0, tsu = 0, age = 0;
-  const long sl = (long)lane_idx * mt + t;
+  const long sl = lb + t;
   if (slot) {
 #pragma unroll
     for (int q = 0; q < 7; ++q) mean[q] = a.mean[sl * 7 + q];
-    for (int q = 0; q < 49; ++q) s_cov[t * 49 + q] = a.cov[sl * 49 + q];
     exists = a.exists[sl] != 0;
     active = a.active[sl] != 0;
     tid = a.track_id[sl];
@@ -370,24 +460,36 @@ __global__ void __launch_bounds__(kMaxThreads) sort_scan_kernel(const SortArgs a
   const int ts0 = a.ts0[lane_idx], nwin = a.nwin[lane_idx];
   const float ovf_v = -a.overflow_cost;
 
+  // Window f's boxes into buffer f & 1, without waiting; its valid flag of
+  // detection t into a register.
+  const long lf0 = (long)lane_idx * nf;
+  auto fetch = [&](int f) {
+    const float* src = a.ltwh + (lf0 + f) * md * 4;
+    float* dst = s_box + (f & 1) * md * 4;
+    for (int q = t; q < md * 4; q += kThreads) copy_async(dst + q, src + q);
+    return det ? a.valid[(lf0 + f) * md + t] : uint8_t{0};
+  };
+  uint8_t valid_next = fetch(0);
+
   for (int f = 0; f < nf; ++f) {
     const int ts = ts0 + f * a.gamma;
     const bool commit = f < nwin;
-    const long lf = (long)lane_idx * nf + f;
+    const long lf = lf0 + f;
+    const float* box = s_box + (f & 1) * md * 4;
     float* work = s_work + t * 49;
-    __syncthreads();  // the previous window is done with the detections
+    const bool valid = valid_next != 0;
+    copy_async_wait();
+    __syncthreads();  // the window's boxes are in; the window before is done
+    if (f + 1 < nf) valid_next = fetch(f + 1);
 
-    // The window's detections.
     if (det) {
-      const long bi = lf * md + t;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s_box[t * 4 + q] = a.ltwh[bi * 4 + q];
-      s_valid[t] = a.valid[bi] != 0;
-      bbox_to_z(s_box + t * 4, s_z + t * 4);
+      s_valid[t] = valid;
+      bbox_to_z(box + t * 4, s_z + t * 4);
       s_matched[t] = 0;
       s_dtid[t] = -1;
       s_price[t] = 0.0f;
-      s_c2r[t] = -1;
+      s_key[t] = 0;
+      s_key[md + t] = 0;
     }
     // Predict (the slots that exist; the others keep their state).
     float mp[7], pred[4];
@@ -398,76 +500,81 @@ __global__ void __launch_bounds__(kMaxThreads) sort_scan_kernel(const SortArgs a
       } else {
 #pragma unroll
         for (int q = 0; q < 7; ++q) mp[q] = mean[q];
-        for (int q = 0; q < 49; ++q) work[q] = s_cov[t * 49 + q];
       }
       x_to_bbox(mp, a.quirk != 0, pred);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) a.o_track_ltwh[so * 4 + q] = pred[q];
-    }
-    __syncthreads();  // the detections are in
-
-    // The profit row: -(weight - IoU) for live pairs, kNeg for the rest.
-    int r2c = md;  // parked on overflow: not a row that bids
-    if (slot) {
-      const float weight = active ? 1.0f : 2.0f;
-      for (int j = 0; j < md; ++j) {
-        const float cost = sub(weight, iou(pred, s_box + j * 4));
-        s_profit[j * mt + t] = exists && s_valid[j] ? -cost : kNeg;
+      for (int q = 0; q < 4; ++q) {
+        a.o_track_ltwh[so * 4 + q] = pred[q];
+        s_pred[t * 4 + q] = pred[q];
       }
-      r2c = exists ? -1 : md;
+      s_slot[t] = (exists ? 1 : 0) | (active ? 2 : 0);
+    }
+    __syncthreads();  // the predictions and the detections are in
+
+    // The profit matrix, a pair a thread in turn.
+    for (int p = t; p < mt * md; p += kThreads) {
+      const int i = p % mt, j = p / mt;
+      const int k = s_slot[i];
+      float profit = kNeg;
+      if ((k & 1) && s_valid[j])
+        profit = -sub((k & 2) ? 1.0f : 2.0f, iou(s_pred + i * 4, box + j * 4));
+      s_profit[p] = profit;
     }
 
-    // The auction, each round in three steps.
-    int it = 0, searches = 0, unassigned = 0;
-    while (it < a.max_iters && (unassigned = __syncthreads_count(slot && r2c < 0)) > 0) {
+    // The auction, each round two barriers.
+    int r2c = exists ? -1 : md;  // md: parked on overflow, not a row that bids
+    int it = 0, searches = 0;
+    int unassigned = __syncthreads_count(r2c < 0);  // the profit matrix is in
+    float prow[MD > 0 ? MD : 1];
+    if constexpr (MD > 0) {
+      if (r2c < 0) {
+#pragma unroll
+        for (int j = 0; j < MD; ++j) prow[j] = s_profit[j * mt + t];
+      }
+    }
+    if ((t & ~31) >= max(mt, md)) {
+      // A warp with no row and no column only meets the rounds' barriers.
+      while (unassigned > 0 && it < a.max_iters) {
+        searches += unassigned;
+        __syncthreads();
+        ++it;
+        if (it < a.max_iters) unassigned = __syncthreads_count(0);
+      }
+    }
+    while (unassigned > 0 && it < a.max_iters) {
       searches += unassigned;
+      unsigned long long* key = s_key + (it & 1) * md;
+      // The other array was last read before this round's first barrier.
+      if (det) s_key[((it + 1) & 1) * md + t] = 0;
       int bidcol = -1;
-      if (slot) {
-        float bid = 0.0f;
-        if (r2c < 0) {
-          int bj = 0;
-          float bv = sub(s_profit[t], s_price[0]);
-          for (int j = 1; j < md; ++j) {
-            const float v = sub(s_profit[j * mt + t], s_price[j]);
-            if (v > bv) {
-              bv = v;
-              bj = j;
-            }
-          }
-          float second = ovf_v;
-          for (int j = 0; j < md; ++j)
-            if (j != bj) second = fmaxf(second, sub(s_profit[j * mt + t], s_price[j]));
-          if (bv <= ovf_v) {
-            r2c = md;  // overflow beats every column: out for good
-          } else {
-            bidcol = bj;
-            bid = add(add(s_price[bj], sub(bv, second)), a.eps);
-          }
+      float bid = 0.0f;
+      if (r2c < 0) {
+        float bv, second;
+        int bj;
+        if constexpr (MD > 0) {
+          search_row<MD>(prow, s_price, ovf_v, bv, bj, second);
+        } else {
+          search_row(s_profit + t, mt, s_price, md, ovf_v, bv, bj, second);
         }
-        s_bidcol[t] = bidcol;
-        s_bid[t] = bid;
-      }
-      __syncthreads();
-      if (det) {
-        float best = kNeg;
-        int win = -1;
-        for (int i = 0; i < mt; ++i)
-          if (s_bidcol[i] == t && s_bid[i] > best) {
-            best = s_bid[i];
-            win = i;
-          }
-        if (win >= 0) {
-          s_c2r[t] = win;
-          s_price[t] = best;
+        if (bv <= ovf_v) {
+          r2c = md;  // overflow beats every column: out for good
+        } else {
+          bidcol = bj;
+          bid = add(add(s_price[bj], sub(bv, second)), a.eps);
+          atomicMax(key + bj, (static_cast<unsigned long long>(__float_as_uint(bid)) << 32) |
+                                  (kAll - static_cast<unsigned>(t)));
         }
-        s_colwin[t] = win;
       }
-      __syncthreads();
-      if (slot) {
-        if (r2c >= 0 && r2c < md && s_colwin[r2c] >= 0) r2c = -1;  // lost
-        if (bidcol >= 0 && s_colwin[bidcol] == t) r2c = bidcol;    // won
+      __syncthreads();  // every bid is in
+      const bool owns = r2c >= 0 && r2c < md;
+      const unsigned long long kown = key[owns ? r2c : 0], kbid = key[bidcol >= 0 ? bidcol : 0];
+      if (owns && kown != 0) r2c = -1;  // lost
+      if (bidcol >= 0 && static_cast<unsigned>(kbid) == kAll - static_cast<unsigned>(t)) {
+        r2c = bidcol;  // won
+        s_price[bidcol] = bid;
       }
       ++it;
+      if (it < a.max_iters) unassigned = __syncthreads_count(r2c < 0);
     }
     if (a.rounds != nullptr && t == 0) a.rounds[lf] = it;
     if (a.searches != nullptr && t == 0) a.searches[lf] = searches;
@@ -480,7 +587,7 @@ __global__ void __launch_bounds__(kMaxThreads) sort_scan_kernel(const SortArgs a
       const int col = r2c >= 0 && r2c < md ? r2c : -1;
       bool accept = false;
       if (exists && col >= 0 && s_valid[col]) {
-        const float piou = iou(pred, s_box + col * 4);
+        const float piou = iou(pred, box + col * 4);
         accept = piou >= a.iou_threshold && piou > 0.0f;
       }
       a.o_matched_det[so] = accept ? col : -1;
@@ -511,17 +618,30 @@ __global__ void __launch_bounds__(kMaxThreads) sort_scan_kernel(const SortArgs a
     }
     __syncthreads();  // every match is marked
 
-    // Births: the free slot of rank k takes the unmatched detection of rank k.
-    const bool unmatched = det && s_valid[t] && !s_matched[t];
-    int det_rank, free_rank, n_unmatched, n_free;
-    block_ranks(unmatched, slot && !exists_n, s_warp, det_rank, free_rank, n_unmatched, n_free);
-    if (unmatched) s_rank2det[det_rank] = t;
+    // Births: the free slot of rank k takes the unmatched detection of rank
+    // k, both ranked in thread order by the warps' ballots.
+    const unsigned umask = __ballot_sync(kAll, det && s_valid[t] && !s_matched[t]);
+    const unsigned fmask = __ballot_sync(kAll, slot && !exists_n);
+    if (lane == 0) {
+      s_umask[warp] = umask;
+      s_nfree[warp] = __popc(fmask);
+    }
     if (det) a.o_det_track_id[lf * md + t] = s_dtid[t];
-    __syncthreads();  // the births' map is in
+    __syncthreads();  // the ballots are in
+    int n_unmatched = 0, n_free = 0, free_rank = __popc(fmask & ((1u << lane) - 1u));
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      n_unmatched += __popc(s_umask[w]);
+      n_free += s_nfree[w];
+      if (w < warp) free_rank += s_nfree[w];
+    }
     if (slot) {
       int tid_n = tid, start_n = start;
-      if (!exists_n && free_rank < n_unmatched) {
-        const int d = s_rank2det[free_rank];
+      const bool born = !exists_n && free_rank < n_unmatched;
+      if (born) {
+        int k = free_rank, w = 0;
+        while (k >= __popc(s_umask[w])) k -= __popc(s_umask[w++]);
+        const int d = w * 32 + nth_set_bit(s_umask[w], k);
         exists_n = true;
         active_n = false;
 #pragma unroll
@@ -540,7 +660,9 @@ __global__ void __launch_bounds__(kMaxThreads) sort_scan_kernel(const SortArgs a
       if (commit) {
 #pragma unroll
         for (int q = 0; q < 7; ++q) mean[q] = mn[q];
-        for (int q = 0; q < 49; ++q) s_cov[t * 49 + q] = work[q];
+        // A slot that neither existed nor was born kept its covariance.
+        if (exists || born)
+          for (int q = 0; q < 49; ++q) s_cov[t * 49 + q] = work[q];
         exists = exists_n;
         active = active_n;
         tid = tid_n;
@@ -559,10 +681,11 @@ __global__ void __launch_bounds__(kMaxThreads) sort_scan_kernel(const SortArgs a
   }
 
   // The state out.
+  __syncthreads();  // every slot's covariance is in
+  for (int q = t; q < mt * 49; q += kThreads) a.cov_o[lb * 49 + q] = s_cov[q];
   if (slot) {
 #pragma unroll
     for (int q = 0; q < 7; ++q) a.mean_o[sl * 7 + q] = mean[q];
-    for (int q = 0; q < 49; ++q) a.cov_o[sl * 49 + q] = s_cov[t * 49 + q];
     a.exists_o[sl] = exists;
     a.active_o[sl] = active;
     a.track_id_o[sl] = tid;
@@ -588,13 +711,15 @@ extern "C" {
 // card's limit. Returns the first error of setting the kernel's shared
 // memory or of the launch: nonzero when the launch was refused.
 int cova_sort_scan(const SortArgs* args, void* stream) {
-  const int threads = ((std::max(args->mt, args->md) + 31) / 32) * 32;
+  void (*kernel)(const SortArgs) = args->md == 32  ? sort_scan_kernel<32>
+                                   : args->md == 8 ? sort_scan_kernel<8>
+                                                   : sort_scan_kernel<0>;
   const size_t bytes = 4 * (size_t)shared_words(args->mt, args->md);
-  cudaError_t err = cudaFuncSetAttribute(sort_scan_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   if (args->lanes == 0 || args->frames == 0) return cudaSuccess;
-  sort_scan_kernel<<<args->lanes, threads, bytes, static_cast<cudaStream_t>(stream)>>>(*args);
+  kernel<<<args->lanes, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(*args);
   return cudaGetLastError();
 }
 

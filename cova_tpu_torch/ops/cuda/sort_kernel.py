@@ -13,8 +13,9 @@ compiled on the TPU for the `lax.scan` of cova_tpu/pipeline/compressed.py,
 vmapped over the ranges, with the auction's `while_loop` inside.
 
 A CUDA tensor goes to the hand-written kernel (csrc/sort_kernel.cu: one
-block a lane, the lane's state on chip for the whole chunk, one launch a
-chunk and no host synchronisation); a CPU tensor goes to
+block of 256 threads a lane, the lane's state on chip for the whole
+chunk, auction rounds of two barriers with a 64-bit atomicMax a bid, one
+launch a chunk and no host synchronisation); a CPU tensor goes to
 `sort_scan_plain`, the loop of `sort_step`s. There is no fallback between
 the two. Both compute in the same order with one rounding an operation
 (the Kalman filter of tracker/kalman.py has no `@` and no library inverse
@@ -82,9 +83,10 @@ def sort_scan_plain(
 def shared_bytes(mt: int, md: int) -> int:
     """Shared memory a block of the kernel takes for MT slots and MD
     boxes (csrc/sort_kernel.cu's `shared_words`, 4 bytes each): two 7x7
-    covariances a slot, the MD x MT profit matrix, 15 words a box, 2 a
-    slot and the scans' 16."""
-    return 4 * (2 * mt * 49 + md * mt + 15 * md + 2 * mt + 16)
+    covariances a slot, the MD x MT profit matrix, 20 words a box (the
+    auction's two 64-bit keys, two windows' boxes), 5 a slot and the
+    warps' 16."""
+    return 4 * (2 * mt * 49 + md * mt + 20 * md + 5 * mt + 16)
 
 
 def check_kernel_shape(mt: int, md: int) -> None:

@@ -10,11 +10,15 @@ max_iters. Integers equal, floats within RTOL 1e-5 (in fact equal: the
 port's Kalman filter rounds as XLA's does on the CPU).
 
 `_mirror_lane` is the kernel's control flow for one block (lane) in numpy
-float32, one rounding an operation: rows bidding in parallel, columns
-resolving their bidders in row order, "lost" before "won", the block's
-stop condition, births by prefix-sum ranks (the free slot of rank k takes
-the unmatched detection of rank k) and the commit under the nwin gate. It
-is held equal to `sort_scan_plain` bit for bit, rounds included.
+float32, one rounding an operation: rows bidding in parallel, each
+searching its row in one running pass, each bid a 64-bit key
+(bits(bid) << 32 | 0xFFFFFFFF - row) taken by its column's maximum in
+one of two key arrays that alternate by round, "lost" before "won", the
+block's stop condition, births by ranks (the free slot of rank k takes
+the unmatched detection of rank k) and the commit under the nwin gate.
+It is held equal to `sort_scan_plain` bit for bit, rounds included; the
+search and the key are held to the plain version's argmax, masked max
+and column argmax on ties.
 
 The wrapper: a CPU tensor runs the plain version and launches nothing, a
 shape over the kernel's limits raises, the ctypes argument block matches
@@ -370,6 +374,33 @@ def _update(mp, p, z):
     return mn, v + w
 
 
+NO_KEY = np.uint64(0)  # an untouched key: below every bid's
+ROW_BITS = np.uint64(0xFFFFFFFF)
+
+
+def _search_row(value, ovf):
+    """csrc/sort_kernel.cu's `search_row` on each row of value (N, MD): one
+    running pass; a value above the best moves the old best into `second`,
+    any other value goes to max(second, v). Returns (best, column,
+    second)."""
+    best, col = value[:, 0].copy(), np.zeros(len(value), int)
+    second = np.full(len(value), ovf, F32)
+    for j in range(1, value.shape[1]):
+        v = value[:, j]
+        up = v > best
+        second = np.where(up, np.maximum(second, best), np.maximum(second, v))
+        col = np.where(up, j, col)
+        best = np.where(up, v, best)
+    return best, col, second
+
+
+def _bid_keys(bid, rows):
+    """The bids' 64-bit keys: a float32 bid's bits above, 0xFFFFFFFF - row
+    below."""
+    bits = np.asarray(bid, F32).view(np.uint32).astype(np.uint64)
+    return (bits << np.uint64(32)) | (ROW_BITS - np.asarray(rows).astype(np.uint64))
+
+
 def _mirror_lane(st, ltwh, valid, ts0, nwin, gamma, cfg, max_iters):
     """One block of the kernel: st is the lane's state (dict of numpy
     arrays, updated), ltwh (F, MD, 4), valid (F, MD). Returns (outputs
@@ -401,42 +432,35 @@ def _mirror_lane(st, ltwh, valid, ts0, nwin, gamma, cfg, max_iters):
             profit[i] = np.where(ex[i] & val, -cost, NEG)
         r2c = np.where(ex, -1, md)
         price = np.zeros(md, F32)
-        c2r = np.full(md, -1)
+        keys = np.zeros((2, md), np.uint64)  # both cleared at the window's top
         it = searches = 0
         while it < max_iters and (r2c < 0).any():  # __syncthreads_count
             searches += int((r2c < 0).sum())
-            # (1) every unassigned row, in parallel.
+            key = keys[it % 2]
+            keys[(it + 1) % 2] = NO_KEY  # read last in the round before
+            # (1) every unassigned row, in parallel: its search, then an
+            # atomicMax of its key at its column.
+            rows = np.flatnonzero(r2c < 0)
+            best, bj, second = _search_row(profit[rows] - price, ovf_v)
+            out = best <= ovf_v
+            r2c[rows[out]] = md
+            ev["exit to overflow"] += int(out.sum())
+            rows, bj, best, second = rows[~out], bj[~out], best[~out], second[~out]
             bidcol = np.full(mt, -1)
             bid = np.zeros(mt, F32)
-            for i in np.flatnonzero(r2c < 0):
-                value = profit[i] - price
-                bj = int(np.argmax(value))  # strict > from j = 0: the first
-                others = np.delete(value, bj)
-                second = max(ovf_v, others.max()) if md > 1 else ovf_v
-                if value[bj] <= ovf_v:
-                    r2c[i] = md
-                    ev["exit to overflow"] += 1
-                else:
-                    bidcol[i] = bj
-                    bid[i] = (price[bj] + (value[bj] - F32(second))) + eps
-            # (2) every column scans its bidders in row order.
-            best = np.full(md, NEG, F32)
-            colwin = np.full(md, -1)
-            for i in range(mt):
-                j = bidcol[i]
-                if j >= 0 and bid[i] > best[j]:
-                    best[j], colwin[j] = bid[i], i
-                elif j >= 0:
-                    ev["outbid or tied"] += 1
-            taken = colwin >= 0
-            c2r[taken], price[taken] = colwin[taken], best[taken]
-            # (3) every row: lost, then won.
+            bidcol[rows] = bj
+            bid[rows] = (price[bj] + (best - second)) + eps
+            np.maximum.at(key, bj, _bid_keys(bid[rows], rows))
+            # (2) after the barrier every row resolves itself: lost, then won.
             owns = (r2c >= 0) & (r2c < md)
-            lost = owns & (colwin[np.where(owns, r2c, 0)] >= 0)
+            lost = owns & (key[np.where(owns, r2c, 0)] != NO_KEY)
             ev["lost"] += int(lost.sum())
-            r2c = np.where(lost, -1, r2c)
-            won = (bidcol >= 0) & (colwin[np.maximum(bidcol, 0)] == np.arange(mt))
-            r2c = np.where(won, bidcol, r2c)
+            r2c[lost] = -1
+            won = (bidcol >= 0) & ((key[np.maximum(bidcol, 0)] & ROW_BITS)
+                                   == ROW_BITS - np.arange(mt).astype(np.uint64))
+            ev["outbid or tied"] += int(((bidcol >= 0) & ~won).sum())
+            r2c[won] = bidcol[won]
+            price[bidcol[won]] = bid[won]
             it += 1
         rounds.append((it, searches))
         ev["max_iters"] += it == max_iters
@@ -467,7 +491,7 @@ def _mirror_lane(st, ltwh, valid, ts0, nwin, gamma, cfg, max_iters):
                      ("death_start", st["start_ts"]), ("death_last_match", new["last_match"]),
                      ("death_tsu", new["time_since_update"]), ("death_active", new["active"])):
             o[k].append(np.array(v))
-        # Births by ranks (block prefix sums).
+        # Births by ranks (the warps' ballots, in thread order).
         unmatched = val & ~det_matched
         free = ~new["exists"]
         det_rank = np.cumsum(unmatched) - unmatched
@@ -499,6 +523,65 @@ def _mirror_lane(st, ltwh, valid, ts0, nwin, gamma, cfg, max_iters):
         else:
             ev["windows past nwin"] += 1
     return {k: np.stack(v) for k, v in o.items()}, rounds, ev
+
+
+def _plain_row_step(value, ovf):
+    """ops/assignment.py's row step on value (N, MD): the first column of
+    the best value (argmax), and the maximum of the others, the best masked
+    to _NEG, floored at the overflow value."""
+    v = torch.from_numpy(value)
+    best_j = v.argmax(dim=1)
+    masked = v.clone()
+    masked.scatter_(1, best_j[:, None], float(NEG))
+    second = torch.clamp(masked.max(dim=1).values, min=float(ovf))
+    return v.max(dim=1).values.numpy(), best_j.numpy(), second.numpy()
+
+
+@pytest.mark.parametrize("md", [1, 2, 3, 8, 13, 32])
+def test_one_pass_search_is_the_argmax_and_the_masked_max(md):
+    """The kernel's one-pass search gives the plain version's best, first
+    best column and floored second on rows full of ties: equal values at
+    the first and last column, a whole row equal, values at the overflow
+    value and at kNeg less a price."""
+    ovf = F32(-sk.OVERFLOW_COST)
+    levels = np.array([NEG - F32(0.5), NEG, -3.5, ovf, -1.25, -0.5, 0.0], F32)
+    value = np.random.default_rng(md).choice(levels, size=(3000, md)).astype(F32)
+    value[0] = F32(-0.5)
+    value[1] = NEG
+    value[2, [0, -1]] = F32(0.25)
+    value[3, [0, -1]] = ovf
+    want = _plain_row_step(value, ovf)
+    for g, w, what in zip(_search_row(value, ovf), want, ("best", "column", "second")):
+        np.testing.assert_array_equal(np.asarray(g).astype(w.dtype), w, err_msg=what)
+
+
+def test_bid_key_picks_the_plain_column_winner():
+    """A column's largest key over its bidders names ops/assignment.py's
+    winner, `bid_matrix.argmax(dim=1)`: the highest bid, the lowest row on
+    ties; its upper half is the winning bid. A column without a bid keeps
+    NO_KEY, which is below every key (a bid is at least eps > 0)."""
+    rng = np.random.default_rng(2)
+    mt, md = 64, 32
+    eps = F32(sk.AUCTION_EPS)
+    levels = np.array([eps, 0.02, 0.5, 1.0, np.nextafter(F32(1), F32(2)), 3.5, 1e6], F32)
+    for _ in range(300):
+        bidcol = rng.integers(-1, md, mt)  # -1: the row does not bid
+        bid = rng.choice(levels, mt).astype(F32)
+        bidder = bidcol >= 0
+        bid_matrix = torch.where(
+            torch.from_numpy(bidder[:, None] & (np.arange(md)[None, :] == bidcol[:, None])),
+            torch.from_numpy(bid)[:, None], torch.tensor(float(NEG)))
+        col_best = bid_matrix.max(dim=0).values.numpy()
+        winner = bid_matrix.argmax(dim=0).numpy()
+        has_bid = col_best > NEG / 2
+        key = np.zeros(md, np.uint64)
+        rows = np.flatnonzero(bidder)
+        np.maximum.at(key, bidcol[rows], _bid_keys(bid[rows], rows))
+        np.testing.assert_array_equal(key != NO_KEY, has_bid)
+        np.testing.assert_array_equal((ROW_BITS - (key & ROW_BITS))[has_bid], winner[has_bid])
+        won_bid = (key >> np.uint64(32)).astype(np.uint32).view(F32)
+        np.testing.assert_array_equal(won_bid[has_bid], col_best[has_bid])
+    assert _bid_keys([eps], [mt - 1])[0] > NO_KEY
 
 
 _DTYPES = {"exists": bool, "active": bool, "predicted": bool, "death": bool,
@@ -605,9 +688,9 @@ def test_kernel_limits_cover_the_paths_shapes():
         sk.check_kernel_shape(mt, md)
     src = (sk._build.CSRC / "sort_kernel.cu").read_text()
     body = re.search(r"shared_words\(int mt, int md\) \{\s*return ([^;]+);", src).group(1)
-    py = re.sub(r"(\d+)L\b", r"\1", body).replace("(long)", "")
+    py = " ".join(re.sub(r"(\d+)L\b", r"\1", body).replace("(long)", "").split())
     for mt, md in ((64, 32), (16, 8), (256, 32), (7, 3)):
-        words = eval(py, {"mt": mt, "md": md, "kMaxWarps": 8})  # noqa: S307 - the .cu's own text
+        words = eval(py, {"mt": mt, "md": md, "kWarps": 8})  # noqa: S307 - the .cu's own text
         assert 4 * words == sk.shared_bytes(mt, md)
 
 
