@@ -2825,12 +2825,14 @@ def _wave_variant(name, pool, slot, pic, start, want) -> float:
 
 def _decode_all(path, on_picture=None, hashes=False, device="cuda"):
     """Decode every sample of `path` with the port's PixelDecoder, then
-    flush; returns (frames popped: [pts, sha Y, U, V] or (pts, y, u, v)),
-    the decoder's stats, seconds)."""
+    flush, with the port's tracer on; returns (frames popped: [pts, sha Y,
+    U, V] or (pts, y, u, v)), the split from the decoder's spans and
+    counters: pictures, syntax_s, upload_s, pop_s (the copy out), seconds)."""
     import hashlib
 
     import torch
 
+    from cova_tpu_torch import trace
     from cova_tpu_torch.codec import Mp4Demuxer, pixrec
 
     d = Mp4Demuxer(str(path))
@@ -2845,6 +2847,8 @@ def _decode_all(path, on_picture=None, hashes=False, device="cuda"):
     orig = pixrec.reconstruct
     if on_picture is not None:
         pixrec.reconstruct = on_picture
+    trace.take()
+    trace.enable()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2856,10 +2860,15 @@ def _decode_all(path, on_picture=None, hashes=False, device="cuda"):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
+        trace.disable()
+        rec = trace.take()
         pixrec.reconstruct = orig
-        stats = dict(dec.stats)
         dec.close()
         d.close()
+    stats = {"pictures": sum(c.get("pixdec.pictures", 0) for c in rec["counters"].values())}
+    for key, name in (("syntax_s", "cova.pixdec.syntax"), ("upload_s", "cova.pixdec.upload"),
+                      ("pop_s", "cova.pixdec.copy_out")):
+        stats[key] = sum(x["end"] - x["start"] for x in rec["spans"] if x["name"] == name) / 1e9
     return out, stats, secs
 
 

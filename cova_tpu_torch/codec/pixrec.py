@@ -29,11 +29,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
-import time
 
 import numpy as np
 import torch
 
+from cova_tpu_torch import trace
 from cova_tpu_torch.codec import StreamGeometryError, lib
 from cova_tpu_torch.ops.h264 import tables
 from cova_tpu_torch.ops.h264.picture import S_REF_PIC, SLICE_INTS, S_SCALE4, S_SCALE8, Picture
@@ -138,19 +138,28 @@ class Syntax:
             ls4[s], ls8[s] = tables.level_scale(self.slices[s, S_SCALE4:S_SCALE4 + 96],
                                                 self.slices[s, S_SCALE8:S_SCALE8 + 128])
         dev = torch.device(device)
+        tracing = trace.enabled()
+        sent = []  # bytes of each host-to-device copy, while tracing
 
         def up(a, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            a = np.ascontiguousarray(a)
+            if tracing:
+                sent.append(a.nbytes)
+            t = torch.from_numpy(a).to(dev)
             return t if dtype is None else t.to(dtype)
 
         coef = torch.zeros(n * 384, dtype=torch.int32, device=dev)
         if self.cpos.size:
             coef[up(self.cpos, torch.long)] = up(self.cval, torch.int32)
-        return Picture(
+        pic = Picture(
             mb_w=self.mb_w, mb_h=self.mb_h, poc=self.poc, mb=up(self.mb),
             cell=up(self.cell, torch.int32), ipred=up(self.ipred, torch.int32),
             coef=coef.view(n, 384), pcm_mb=up(self.pcm_mb, torch.long), pcm=up(self.pcm),
             slices=up(self.slices), slot_of=up(slot_of), ls4=up(ls4), ls8=up(ls8))
+        if tracing:
+            trace.count("pixdec.uploads", len(sent))
+            trace.count("pixdec.upload_bytes", sum(sent))
+        return pic
 
 
 def reconstruct(pool, slot, pic: Picture):
@@ -201,7 +210,6 @@ class PixelDecoder:
         self._held: set[int] = set()
         self._pending: list[tuple] = []  # (poc, pts, slot, pic_id, crop)
         self._out = collections.deque()
-        self.stats = collections.Counter()
 
     # --- frame buffers ----------------------------------------------------
     def _slot(self, plane):
@@ -237,9 +245,11 @@ class PixelDecoder:
                                                                  cl // 2:(W - cr) // 2]
             v = frame[W * H * 5 // 4:].view(H // 2, W // 2)[ct // 2:(H - cb) // 2,
                                                             cl // 2:(W - cr) // 2]
-            t0 = time.perf_counter()
-            self._out.append((pts, *(p.cpu().numpy().copy() for p in (y, u, v))))
-            self.stats["pop_s"] += time.perf_counter() - t0
+            with trace.span("cova.pixdec.copy_out"):
+                planes = [p.cpu().numpy().copy() for p in (y, u, v)]
+            if trace.enabled():
+                trace.count("pixdec.copy_out_bytes", sum(p.nbytes for p in planes))
+            self._out.append((pts, *planes))
         del self._pending[:n]
         self._release()
 
@@ -247,14 +257,13 @@ class PixelDecoder:
     def send(self, au: bytes, pts: int = 0) -> int:
         L = lib()
         buf = (ctypes.c_uint8 * len(au)).from_buffer_copy(au)
-        t0 = time.perf_counter()
-        rc = L.cova_rec_send(self._h, buf, len(au))
-        if rc == _UNSUPPORTED:
-            raise UnsupportedStreamError(_SCOPE)
-        if rc != 0:
-            raise RuntimeError(f"decode error rc={rc}")
-        syn = Syntax(self._h)
-        self.stats["syntax_s"] += time.perf_counter() - t0
+        with trace.span("cova.pixdec.syntax"):
+            rc = L.cova_rec_send(self._h, buf, len(au))
+            if rc == _UNSUPPORTED:
+                raise UnsupportedStreamError(_SCOPE)
+            if rc != 0:
+                raise RuntimeError(f"decode error rc={rc}")
+            syn = Syntax(self._h)
         if not (syn.mb[:, 0] & 1).all():
             raise RuntimeError("a slice of the picture is missing")
         if syn.idr:  # no earlier picture is a reference any more
@@ -262,13 +271,11 @@ class PixelDecoder:
             self._emit(len(self._pending))
         plane = 16 * syn.mb_w * 16 * syn.mb_h * 3 // 2
         slot = self._slot(plane)
-        t0 = time.perf_counter()
-        pic = syn.picture(self.device, self._slot_of_pic)
-        self.stats["upload_s"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        reconstruct(self._pool, slot, pic)
-        self.stats["reconstruct_s"] += time.perf_counter() - t0
-        self.stats["pictures"] += 1
+        with trace.span("cova.pixdec.upload"):
+            pic = syn.picture(self.device, self._slot_of_pic)
+        with trace.span("cova.pixdec.launch"):
+            reconstruct(self._pool, slot, pic)
+        trace.count("pixdec.pictures")
         self._slot_of_pic[syn.pic_id] = slot
         self._held = set(syn.dpb.tolist())
         self._pending.append((syn.poc, pts, slot, syn.pic_id, (syn.mb_w, syn.mb_h,

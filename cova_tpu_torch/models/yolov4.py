@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cova_tpu_torch import trace
 from cova_tpu_torch.ops.cuda.nms_kernel import nms
 
 # Standard yolov4.cfg anchors/strides (reference: tensorrt_demos yolo cfg).
@@ -445,8 +446,12 @@ class YoloDetector:
     def infer(self, y, u, v):
         """numpy planes -> (ltwh, scores, classes, valid) of the frame, as
         numpy arrays in network-input pixels."""
-        outs = self.postprocess(self.network(self.preprocess(*self.planes(y, u, v))))
-        return tuple(a[0].cpu().numpy() for a in outs)
+        with trace.span("cova.oracle.pre"):
+            x = self.preprocess(*self.planes(y, u, v))
+        with trace.span("cova.oracle.net"):
+            heads = self.network(x)
+        with trace.span("cova.oracle.post"):
+            return tuple(a[0].cpu().numpy() for a in self.postprocess(heads))
 
     def boxrecs(self, ts, frame_shape, ltwh, scores, classes, valid) -> list:
         """One frame's NMS outputs (numpy, network-input pixels) -> its

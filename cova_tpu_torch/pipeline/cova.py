@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 import threading
 import time
 import types
@@ -39,6 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from cova_tpu_torch import trace
 from cova_tpu_torch.aggregator import Associator
 from cova_tpu_torch.codec import Mp4Demuxer, PixelDecoder
 from cova_tpu_torch.codec.pixrec import check_stream
@@ -62,7 +62,11 @@ HOST_MAX_BOXES = 16
 class StageTimers:
     """Wall-clock seconds per pipeline stage. Device work runs
     asynchronously behind the host, so the parts can exceed
-    elapsed_seconds."""
+    elapsed_seconds. Each field sums the seconds of the tracer's timed
+    spans that bound it (cova_tpu_torch/trace.py), traced or not:
+    entropy_decode `cova.entdec`, device_dispatch `cova.masks`,
+    host_mirror `cova.mirror`, pixel_stage `cova.pixel_stage`, oracle
+    `cova.oracle`, and pixel_decode `cova.pixdec` less `cova.oracle`."""
 
     entropy_decode: float = 0.0
     device_dispatch: float = 0.0
@@ -257,19 +261,9 @@ class CovaPipeline:
             pulled.cpu()
 
     def run(self, max_frames: Optional[int] = None) -> CovaResult:
-        # COVA_PROFILE=<dir> wraps the run in a torch.profiler trace
-        # (host ops, and device kernels on CUDA), written to <dir> as a
-        # Chrome trace beside the stage timers in CovaResult.timers.
-        prof_dir = os.environ.get("COVA_PROFILE")
-        if not prof_dir:
-            return self._run(max_frames)
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        os.makedirs(prof_dir, exist_ok=True)
-        with torch.profiler.profile(activities=acts) as prof:
+        with trace.span("cova.run", root=True) as sp:
             res = self._run(max_frames)
-        prof.export_chrome_trace(os.path.join(prof_dir, "cova_trace.json"))
+            sp.set(frames=res.num_frames, ranges=self.num_ranges, streams=len(self.streams))
         return res
 
     def _run(self, max_frames: Optional[int] = None) -> CovaResult:
@@ -277,127 +271,128 @@ class CovaPipeline:
         t = cfg.video.timestep
         f = cfg.compressed.batch_frames
         fps = cfg.video.fps
-        last = cfg.last or "full"
-        if last == "full":
-            self._require_pixel_decoder()
+        with trace.span("cova.prepare"):
+            last = cfg.last or "full"
+            if last == "full":
+                self._require_pixel_decoder()
 
-        bounds = self._range_bounds()
-        if max_frames:
-            bounds = [(sx, s, min(c, max_frames)) for sx, s, c in bounds]
-        # Absolute display rank -> presentation seconds, per stream. The
-        # aggregator associates oracle detections with track boxes by
-        # EXACT timestamp equality, and detections carry container pts,
-        # so every timestamp that reaches the aggregator comes from the
-        # container clock, not from rank/fps. The selector/tracker keep
-        # working in the rank/fps domain internally.
-        pts_sec_s = []
-        for s in self.streams:
-            d = s.demux
-            all_pts = np.sort(
-                np.array(
-                    [d.sample(i).pts for i in range(d.num_samples)],
-                    dtype=np.int64,
-                )
-            )
-            ps = all_pts / float(d.timescale)
-            if len(ps) == 0:
-                ps = np.zeros(1)
-            # Extrapolate past EOS for empty-range placeholders.
-            ps = np.concatenate([ps, ps[-1] + np.arange(1, len(bounds) + 2) / fps])
-            pts_sec_s.append(ps)
-        range_starts = [float(pts_sec_s[sx][s]) for sx, s, _ in bounds]
-        for sidx, s in enumerate(self.streams):
-            s.aggregator.set_ranges(
-                [rs for rs, (sx, _, _) in zip(range_starts, bounds) if sx == sidx]
-            )
-        # Display-order sample indices per range (B-frame reordering):
-        # the temporal stack must see frames in presentation order, while
-        # the frame selector consumes frames in decode order with their
-        # display-position pts.
-        disp = [
-            self.streams[sx].demux.display_order(s, c) if c else np.zeros(0, np.int32)
-            for sx, s, c in bounds
-        ]
-        # display position (absolute frame rank) per sample index
-        pos_of = []
-        for ri, (_, s_, _) in enumerate(bounds):
-            pos_of.append({int(si): s_ + rel for rel, si in enumerate(disp[ri])})
-
-        dead_count = [0]
-
-        def on_dead_factory(range_start, sample_start, stream):
-            # The trackers work in range-relative frame indices; convert
-            # to absolute seconds at the aggregator boundary. `box` is
-            # filled with the tracker right after construction.
-            box = {}
-            pts_sec = pts_sec_s[stream]
-            agg = self.streams[stream].aggregator
-
-            def cb(rec):
-                dead_count[0] += 1
-                oldest = box["ht"].oldest
-
-                def sec(frame_idx):
-                    return float(
-                        pts_sec[min(sample_start + int(round(frame_idx)),
-                                    len(pts_sec) - 1)]
+            bounds = self._range_bounds()
+            if max_frames:
+                bounds = [(sx, s, min(c, max_frames)) for sx, s, c in bounds]
+            # Absolute display rank -> presentation seconds, per stream. The
+            # aggregator associates oracle detections with track boxes by
+            # EXACT timestamp equality, and detections carry container pts,
+            # so every timestamp that reaches the aggregator comes from the
+            # container clock, not from rank/fps. The selector/tracker keep
+            # working in the rank/fps domain internally.
+            pts_sec_s = []
+            for s in self.streams:
+                d = s.demux
+                all_pts = np.sort(
+                    np.array(
+                        [d.sample(i).pts for i in range(d.num_samples)],
+                        dtype=np.int64,
                     )
-
-                oldest_s = sec(oldest) if math.isfinite(oldest) else 1e18
-                rec = dataclasses.replace(
-                    rec,
-                    start_ts=sec(rec.start_ts),
-                    end_ts=sec(rec.end_ts),
-                    history=[(sec(fi), box_) for fi, box_ in rec.history],
                 )
-                agg.submit_track(range_start, oldest_s, rec)
-
-            return cb, box
-
-        selectors = []
-        trackers = []
-        # Scheduled decodes, grouped by range so the pixel stage can run
-        # one independent decoder per range.
-        pix_jobs: list[list] = [[] for _ in bounds]
-
-        def emit_factory(selector_idx):
-            def emit(frames):
-                pix_jobs[selector_idx].extend(frames)
-
-            return emit
-
-        host_tracking = cfg.compressed.host_tracking
-        for ri, (sx, start, _) in enumerate(bounds):
-            cb, cb_box = on_dead_factory(range_starts[ri], start, sx)
-            # One native tracker per range and run (its C state is freed
-            # when the object goes).
-            if host_tracking:
-                ht = HostSort(cfg.sort, on_dead=cb)
-            else:
-                ht = HostTracker(on_dead=cb)
-            cb_box["ht"] = ht
-            trackers.append(ht)
-
-            def mk_seen(ht=ht, start=start):
-                # selector pts (seconds) -> range-relative frame index
-                return lambda pts: ht.mark_seen(round(pts * fps) - start)
-
-            selectors.append(
-                FrameSelector(
-                    cfg.selector,
-                    cfg.sort,
-                    fps=fps,
-                    mark_seen=mk_seen(),
-                    emit=emit_factory(ri),
+                ps = all_pts / float(d.timescale)
+                if len(ps) == 0:
+                    ps = np.zeros(1)
+                # Extrapolate past EOS for empty-range placeholders.
+                ps = np.concatenate([ps, ps[-1] + np.arange(1, len(bounds) + 2) / fps])
+                pts_sec_s.append(ps)
+            range_starts = [float(pts_sec_s[sx][s]) for sx, s, _ in bounds]
+            for sidx, s in enumerate(self.streams):
+                s.aggregator.set_ranges(
+                    [rs for rs, (sx, _, _) in zip(range_starts, bounds) if sx == sidx]
                 )
-            )
+            # Display-order sample indices per range (B-frame reordering):
+            # the temporal stack must see frames in presentation order, while
+            # the frame selector consumes frames in decode order with their
+            # display-position pts.
+            disp = [
+                self.streams[sx].demux.display_order(s, c) if c else np.zeros(0, np.int32)
+                for sx, s, c in bounds
+            ]
+            # display position (absolute frame rank) per sample index
+            pos_of = []
+            for ri, (_, s_, _) in enumerate(bounds):
+                pos_of.append({int(si): s_ + rel for rel, si in enumerate(disp[ri])})
 
-        # Pre-feed the selectors with every encoded frame in decode order.
-        for ri, (sx, start, count) in enumerate(bounds):
-            sel = selectors[ri]
-            d = self.streams[sx].demux
-            for si in range(start, start + count):
-                sel.push_frame(si, pos_of[ri][si] / fps, d.sample(si).keyframe)
+            dead_count = [0]
+
+            def on_dead_factory(range_start, sample_start, stream):
+                # The trackers work in range-relative frame indices; convert
+                # to absolute seconds at the aggregator boundary. `box` is
+                # filled with the tracker right after construction.
+                box = {}
+                pts_sec = pts_sec_s[stream]
+                agg = self.streams[stream].aggregator
+
+                def cb(rec):
+                    dead_count[0] += 1
+                    oldest = box["ht"].oldest
+
+                    def sec(frame_idx):
+                        return float(
+                            pts_sec[min(sample_start + int(round(frame_idx)),
+                                        len(pts_sec) - 1)]
+                        )
+
+                    oldest_s = sec(oldest) if math.isfinite(oldest) else 1e18
+                    rec = dataclasses.replace(
+                        rec,
+                        start_ts=sec(rec.start_ts),
+                        end_ts=sec(rec.end_ts),
+                        history=[(sec(fi), box_) for fi, box_ in rec.history],
+                    )
+                    agg.submit_track(range_start, oldest_s, rec)
+
+                return cb, box
+
+            selectors = []
+            trackers = []
+            # Scheduled decodes, grouped by range so the pixel stage can run
+            # one independent decoder per range.
+            pix_jobs: list[list] = [[] for _ in bounds]
+
+            def emit_factory(selector_idx):
+                def emit(frames):
+                    pix_jobs[selector_idx].extend(frames)
+
+                return emit
+
+            host_tracking = cfg.compressed.host_tracking
+            for ri, (sx, start, _) in enumerate(bounds):
+                cb, cb_box = on_dead_factory(range_starts[ri], start, sx)
+                # One native tracker per range and run (its C state is freed
+                # when the object goes).
+                if host_tracking:
+                    ht = HostSort(cfg.sort, on_dead=cb)
+                else:
+                    ht = HostTracker(on_dead=cb)
+                cb_box["ht"] = ht
+                trackers.append(ht)
+
+                def mk_seen(ht=ht, start=start):
+                    # selector pts (seconds) -> range-relative frame index
+                    return lambda pts: ht.mark_seen(round(pts * fps) - start)
+
+                selectors.append(
+                    FrameSelector(
+                        cfg.selector,
+                        cfg.sort,
+                        fps=fps,
+                        mark_seen=mk_seen(),
+                        emit=emit_factory(ri),
+                    )
+                )
+
+            # Pre-feed the selectors with every encoded frame in decode order.
+            for ri, (sx, start, count) in enumerate(bounds):
+                sel = selectors[ri]
+                d = self.streams[sx].demux
+                for si in range(start, start + count):
+                    sel.push_frame(si, pos_of[ri][si] / fps, d.sample(si).keyframe)
 
         start_time = time.perf_counter()
         # Window accounting: window j of a range covers source frames
@@ -443,17 +438,21 @@ class CovaPipeline:
             native CC + SORT (csrc/cctrack.cc) per range and window, and
             the selector fed from them."""
             r_, f_, mh_, mw_ = self.stage.masks_shape
-            masks = unpack_masks(pulled.numpy(), self.stage.masks_shape)
-            ltwh, _, valid = cc_boxes(
-                masks.reshape(r_ * f_, mh_, mw_),
-                cfg.compressed.cc_threshold,
-                HOST_MAX_BOXES,
-            )
+            with trace.span("cova.mirror.wait"):
+                packed = pulled.numpy()
+            with trace.span("cova.mirror.cc"):
+                masks = unpack_masks(packed, self.stage.masks_shape)
+                ltwh, _, valid = cc_boxes(
+                    masks.reshape(r_ * f_, mh_, mw_),
+                    cfg.compressed.cc_threshold,
+                    HOST_MAX_BOXES,
+                )
             ltwh = ltwh.reshape(r_, f_, HOST_MAX_BOXES, 4)
             valid = valid.reshape(r_, f_, HOST_MAX_BOXES)
-            for ri, k, frame_idx in live_windows(win0, skipped):
-                dets = ltwh[ri, k][valid[ri, k]]
-                select(ri, frame_idx, trackers[ri].update(dets, float(frame_idx)))
+            with trace.span("cova.mirror.track"):
+                for ri, k, frame_idx in live_windows(win0, skipped):
+                    dets = ltwh[ri, k][valid[ri, k]]
+                    select(ri, frame_idx, trackers[ri].update(dets, float(frame_idx)))
 
         names = (
             "track_ltwh", "track_id", "track_id_post", "exists",
@@ -464,12 +463,15 @@ class CovaPipeline:
         def host_mirror(pulled, win0, skipped):
             """Consume one chunk's packed SortOutputs: HostTracker
             histories/deaths + FrameSelector scheduling per window."""
-            out_np = unpack_outputs_np(pulled.numpy(), self.stage.packed_shape)
-            for ri, k, frame_idx in live_windows(win0, skipped):
-                row = types.SimpleNamespace(
-                    **{n: getattr(out_np, n)[ri, k] for n in names}
-                )
-                select(ri, frame_idx, trackers[ri].update(float(frame_idx), row))
+            with trace.span("cova.mirror.wait"):
+                packed = pulled.numpy()
+            with trace.span("cova.mirror.track"):
+                out_np = unpack_outputs_np(packed, self.stage.packed_shape)
+                for ri, k, frame_idx in live_windows(win0, skipped):
+                    row = types.SimpleNamespace(
+                        **{n: getattr(out_np, n)[ri, k] for n in names}
+                    )
+                    select(ri, frame_idx, trackers[ri].update(float(frame_idx), row))
 
         mirror = host_track if host_tracking else host_mirror
         # Software-pipelined chunk loop: while chunk i's outputs cross to
@@ -477,73 +479,86 @@ class CovaPipeline:
         # works on it; the host mirror for chunk i runs one iteration
         # later, when its copy has landed.
         timers = StageTimers()
+
+        def run_mirror(pending):
+            with trace.timed("cova.mirror") as sp:
+                mirror(*pending)
+            timers.host_mirror += sp.seconds
+
         pending_mirror = None  # (_HostCopy, win0, skipped) awaiting mirror
         for chunk_i in range(n_chunks):
             win0 = chunk_i * f
             off = win0 * g  # first source frame of the chunk
-            t_dec = time.perf_counter()
-            meta_chunk = np.zeros((self.num_ranges, nf_chunk, mh, mw, 2), np.uint8)
-            if cfg.compressed.signed_mv:
-                # zero motion (mv_x=mv_y=8 -> offset 128) in padding
-                meta_chunk[..., 1] = 0x88
-            skipped = []
-            for ri, (sx, start, count) in enumerate(bounds):
-                n = min(nf_chunk, count - off)
-                if win0 >= wmax[ri] or n <= 0:
-                    skipped.append(True)
-                    continue
-                self.streams[sx].demux.entropy_decode_packed16(
-                    disp[ri][off : off + n],
-                    with_nnz=cfg.compressed.use_nnz_channel,
-                    signed_mv=cfg.compressed.signed_mv,
-                    threads=threads,
-                    out=meta_chunk[ri, :n],
-                )
-                skipped.append(False)
-            timers.entropy_decode += time.perf_counter() - t_dec
+            with trace.timed("cova.entdec", process=True) as dec:
+                meta_chunk = np.zeros((self.num_ranges, nf_chunk, mh, mw, 2), np.uint8)
+                if cfg.compressed.signed_mv:
+                    # zero motion (mv_x=mv_y=8 -> offset 128) in padding
+                    meta_chunk[..., 1] = 0x88
+                skipped = []
+                for ri, (sx, start, count) in enumerate(bounds):
+                    n = min(nf_chunk, count - off)
+                    if win0 >= wmax[ri] or n <= 0:
+                        skipped.append(True)
+                        continue
+                    demux = self.streams[sx].demux
+                    indices = disp[ri][off : off + n]
+                    with trace.span("cova.entdec.range") as sp:
+                        demux.entropy_decode_packed16(
+                            indices,
+                            with_nnz=cfg.compressed.use_nnz_channel,
+                            signed_mv=cfg.compressed.signed_mv,
+                            threads=threads,
+                            out=meta_chunk[ri, :n],
+                        )
+                        if trace.enabled():
+                            firsts = [gop.first_sample for gop in demux.gops()]
+                            sp.set(frames=int(n), gops=int(np.unique(
+                                np.searchsorted(firsts, indices, side="right")).size))
+                    trace.count("entdec.frames", int(n))
+                    skipped.append(False)
+            timers.entropy_decode += dec.seconds
             if last == "entdec":
                 continue
 
-            t_dev = time.perf_counter()
-            if host_tracking:
-                out = self.stage.run_chunk_masks(meta_chunk)
-            else:
-                ts0 = np.full(self.num_ranges, off + t - 1, np.int32)
-                nwin = np.array([max(0, min(f, wm - win0)) for wm in wmax], np.int32)
-                out, _, _ = self.stage.run_chunk(meta_chunk, ts0, nwin)
-            timers.device_dispatch += time.perf_counter() - t_dev
+            with trace.timed("cova.masks") as dev:
+                if host_tracking:
+                    out = self.stage.run_chunk_masks(meta_chunk)
+                else:
+                    ts0 = np.full(self.num_ranges, off + t - 1, np.int32)
+                    nwin = np.array([max(0, min(f, wm - win0)) for wm in wmax], np.int32)
+                    out, _, _ = self.stage.run_chunk(meta_chunk, ts0, nwin)
+            timers.device_dispatch += dev.seconds
+            trace.count("masks.chunks")
             if last in ("mask", "boxes"):
                 continue
             pulled = _HostCopy(out)
 
             if pending_mirror is not None:
-                t_mir = time.perf_counter()
-                mirror(*pending_mirror)
-                timers.host_mirror += time.perf_counter() - t_mir
+                run_mirror(pending_mirror)
             pending_mirror = (pulled, win0, skipped)
         if pending_mirror is not None:
-            t_mir = time.perf_counter()
-            mirror(*pending_mirror)
-            timers.host_mirror += time.perf_counter() - t_mir
+            run_mirror(pending_mirror)
 
         # EOS: flush selectors + trackers, then decode scheduled frames.
-        for sel, ht in zip(selectors, trackers):
-            sel.finish()
-            if host_tracking:
-                ht.finalize()
-            else:
-                ht.finalize(cfg.sort.min_hits)
+        with trace.span("cova.finish"):
+            for sel, ht in zip(selectors, trackers):
+                sel.finish()
+                if host_tracking:
+                    ht.finalize()
+                else:
+                    ht.finalize(cfg.sort.min_hits)
 
         pixel_frames = 0
         if last == "full" and any(pix_jobs):
             self.log(f"pixel stage: {sum(map(len, pix_jobs))} frames scheduled")
-            t_pix = time.perf_counter()
-            pixel_frames = self._run_pixel_stage(pix_jobs, [sx for sx, _, _ in bounds],
-                                                 timers)
-            timers.pixel_stage += time.perf_counter() - t_pix
+            with trace.timed("cova.pixel_stage", process=True) as pix:
+                pixel_frames = self._run_pixel_stage(pix_jobs, [sx for sx, _, _ in bounds],
+                                                     timers)
+            timers.pixel_stage += pix.seconds
 
-        for s in self.streams:
-            s.aggregator.terminate()
+        with trace.span("cova.finish"):
+            for s in self.streams:
+                s.aggregator.terminate()
         elapsed = time.perf_counter() - start_time
 
         counts = [s.counts for s in selectors]
@@ -577,35 +592,36 @@ class CovaPipeline:
         # Prefetch bitstream payloads serially: the demuxer's FILE* is
         # seek-position stateful, so only the libavcodec work is fanned
         # out to threads.
-        prefetched = []
-        for ri, jobs in enumerate(jobs_per_range):
-            demux = self.streams[stream_of_range[ri]].demux
-            ordered = sorted(jobs, key=lambda x: x.sample_index)
-            drop = {fr.sample_index: fr.droppable for fr in ordered}
-            # PAFF: one sample = one FIELD; libavcodec weaves the
-            # complementary pair (adjacent samples, opposite parity)
-            # into ONE output frame carrying the FIRST field's pts.
-            # Decode pairs atomically: pull in the complement of every
-            # scheduled field, and keep the woven frame iff EITHER
-            # field was scheduled non-droppable. field_parity() is 0
-            # for every progressive/MBAFF sample (frame pictures), so
-            # this is a no-op off PAFF streams.
-            for si in sorted(drop):
-                p = demux.field_parity(si)
-                if p == 0:
-                    continue
-                for cand in (si + 1, si - 1):
-                    if (0 <= cand < demux.num_samples
-                            and demux.field_parity(cand) == 3 - p):
-                        if cand not in drop:
-                            drop[cand] = True
-                        merged = drop[si] and drop[cand]
-                        drop[si] = drop[cand] = merged
-                        break
-            prefetched.append(
-                [(demux.read_sample(si), demux.sample(si).pts, drop[si])
-                 for si in sorted(drop)]
-            )
+        with trace.span("cova.pixdec.prefetch"):
+            prefetched = []
+            for ri, jobs in enumerate(jobs_per_range):
+                demux = self.streams[stream_of_range[ri]].demux
+                ordered = sorted(jobs, key=lambda x: x.sample_index)
+                drop = {fr.sample_index: fr.droppable for fr in ordered}
+                # PAFF: one sample = one FIELD; libavcodec weaves the
+                # complementary pair (adjacent samples, opposite parity)
+                # into ONE output frame carrying the FIRST field's pts.
+                # Decode pairs atomically: pull in the complement of every
+                # scheduled field, and keep the woven frame iff EITHER
+                # field was scheduled non-droppable. field_parity() is 0
+                # for every progressive/MBAFF sample (frame pictures), so
+                # this is a no-op off PAFF streams.
+                for si in sorted(drop):
+                    p = demux.field_parity(si)
+                    if p == 0:
+                        continue
+                    for cand in (si + 1, si - 1):
+                        if (0 <= cand < demux.num_samples
+                                and demux.field_parity(cand) == 3 - p):
+                            if cand not in drop:
+                                drop[cand] = True
+                            merged = drop[si] and drop[cand]
+                            drop[si] = drop[cand] = merged
+                            break
+                prefetched.append(
+                    [(demux.read_sample(si), demux.sample(si).pts, drop[si])
+                     for si in sorted(drop)]
+                )
 
         # Each inference frame goes to its stream's detector as it leaves
         # the decoder (one call a frame, one call at a time), so the stage
@@ -615,6 +631,20 @@ class CovaPipeline:
         # those of one call over all frames.
         detect_lock = threading.Lock()
         oracle_s = [0.0]
+        # The ranges' decode, in threads: each range's span hangs under it.
+        stage = trace.timed("cova.pixdec")
+
+        def detect(detector, frame):
+            with trace.span("cova.oracle.wait"):
+                detect_lock.acquire()
+            try:
+                with trace.timed("cova.oracle") as sp:
+                    got = detector([frame])
+                oracle_s[0] += sp.seconds
+                trace.count("oracle.frames")
+            finally:
+                detect_lock.release()
+            return got
 
         def decode_range(args):
             items, sx = args
@@ -622,48 +652,46 @@ class CovaPipeline:
                 return 0, []
             s = self.streams[sx]
             demux = s.demux
-            dec = PixelDecoder(demux.extradata(), device=self.device)
             n, dets = 0, []
             droppable_by_pts = {pts: d for _, pts, d in items}
+            with trace.span("cova.pixdec.range", parent=stage):
+                dec = PixelDecoder(demux.extradata(), device=self.device)
 
-            def drain():
-                nonlocal n
-                got = dec.pop(demux.width, demux.height)
-                while got is not None:
-                    pts, y, u, v = got
-                    d = droppable_by_pts.get(pts)
-                    if d is not None and not d:
-                        n += 1
-                        if s.detector is not None:
-                            # Detector timestamps are seconds (the
-                            # aggregator's association domain); container
-                            # pts are timescale ticks.
-                            with detect_lock:
-                                t_det = time.perf_counter()
-                                dets.extend(s.detector(
-                                    [(pts / float(demux.timescale), y, u, v)]))
-                                oracle_s[0] += time.perf_counter() - t_det
+                def drain():
+                    nonlocal n
                     got = dec.pop(demux.width, demux.height)
+                    while got is not None:
+                        pts, y, u, v = got
+                        d = droppable_by_pts.get(pts)
+                        if d is not None and not d:
+                            n += 1
+                            if s.detector is not None:
+                                # Detector timestamps are seconds (the
+                                # aggregator's association domain);
+                                # container pts are timescale ticks.
+                                dets.extend(detect(
+                                    s.detector, (pts / float(demux.timescale), y, u, v)))
+                        got = dec.pop(demux.width, demux.height)
 
-            try:
-                for payload, pts, _ in items:
-                    dec.send(payload, pts)
+                try:
+                    for payload, pts, _ in items:
+                        dec.send(payload, pts)
+                        drain()
+                    dec.flush()
                     drain()
-                dec.flush()
-                drain()
-            finally:
-                dec.close()
+                finally:
+                    dec.close()
             return n, dets
 
         workers = max(1, min(len(prefetched), self.cfg.parallel.decode_threads))
-        t_dec = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
-            per_range = list(ex.map(decode_range, zip(prefetched, stream_of_range)))
+        with stage:
+            with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+                per_range = list(ex.map(decode_range, zip(prefetched, stream_of_range)))
         if timers is not None:
             # The detector's calls overlap other ranges' decoding: the
             # decode is the stage's wall time less the detector's.
             timers.oracle += oracle_s[0]
-            timers.pixel_decode += time.perf_counter() - t_dec - oracle_s[0]
+            timers.pixel_decode += stage.seconds - oracle_s[0]
 
         # Aggregation per stream (independent detector and aggregator
         # state; a solo run is the 1-stream special case).

@@ -3,7 +3,7 @@
 The counterpart of examples/run_cova.py for the PyTorch port:
 
     python -m cova_tpu_torch.run_cova VIDEO.mp4 OUTPUT_DIR [--device cpu]
-        [--max-frames N] [--device-tracking]
+        [--max-frames N] [--device-tracking] [--trace PATH]
 
 It runs on the card (--device cuda, the default; without one it raises)
 unless --device names another torch device, such as cpu. The run uses the CovaConfig defaults, so connected components and SORT
@@ -26,6 +26,12 @@ selected frames with the port's pixel decoder on --device
 (pixrec.UnsupportedStreamError). Without $COVA_YOLO_WEIGHTS there is no
 detector, and the run stops after frame selection (last="select"), with
 dnn.csv and assoc.csv empty.
+
+--trace PATH runs the job under torch.profiler (with CUDA activity on a
+card) with the port's tracer on (cova_tpu_torch/trace.py), and writes one
+Chrome trace to PATH: the profiler's events and the pipeline's spans on
+one timeline, each run's counters on the arguments of its `cova.run`
+span. It opens in Perfetto or chrome://tracing.
 """
 
 from __future__ import annotations
@@ -48,7 +54,33 @@ def parser() -> argparse.ArgumentParser:
                     help="cap on frames per GoP range")
     ap.add_argument("--device-tracking", action="store_true",
                     help="run CC + SORT on the device (host_tracking=False)")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="write a Chrome trace of the run, the pipeline's spans included")
     return ap
+
+
+def traced_run(pipe, max_frames, path):
+    """pipe.run() under torch.profiler with the port's tracer on; one
+    Chrome trace of both to `path`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cova_tpu_torch import trace
+
+    acts = [ProfilerActivity.CPU]
+    if pipe.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    trace.enable()
+    try:
+        with profile(activities=acts) as prof:
+            result = pipe.run(max_frames=max_frames)
+            if pipe.device.type == "cuda":
+                torch.cuda.synchronize(pipe.device)
+    finally:
+        trace.disable()
+    trace.export_chrome(prof, trace.take(), path)
+    print(f"trace: {path}")
+    return result
 
 
 def main(argv=None) -> None:
@@ -90,7 +122,10 @@ def main(argv=None) -> None:
         args.input, args.output_dir, cfg, variables=variables, detector=detector,
         device=args.device,
     )
-    result = pipe.run(max_frames=args.max_frames)
+    if args.trace:
+        result = traced_run(pipe, args.max_frames, args.trace)
+    else:
+        result = pipe.run(max_frames=args.max_frames)
 
     total = result.num_frames
     print(f"Elapsed seconds: {result.elapsed_seconds:.2f}")
