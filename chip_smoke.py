@@ -13,9 +13,9 @@ took are printed as it ends:
      built: is libnvcuvid visible to ldconfig or in the driver's library
      directories, does the toolkit ship nvcuvid.h);
   1  builds every CUDA kernel of the port from the sources in the
-     checkout (the CC, NMS, MOG2, SORT and the three H.264 reconstruction
-     kernels, one nvcc each, all at once), and the port's codec library
-     (with its syntax decoder, csrc/rec); prints what ptxas says of each
+     checkout (the CC, NMS, MOG2, SORT, the three H.264 reconstruction
+     kernels and K4, one nvcc each, all at once), and the port's codec
+     library (with its syntax decoder, csrc/rec); prints what ptxas says of each
      kernel (registers, spills) and, from `cuobjdump -sass`, the MOG2
      and SORT kernels' instruction counts and atomics (the listing goes
      beside the built library);
@@ -27,7 +27,11 @@ took are printed as it ends:
      windows, its next 16 on the carried state, nwin tails with gamma 2,
      a full table of 64 slots, an auction stopped at max_iters,
      graft_entry's MD=8; then K7 alone on the whole chunk, three runs
-     equal, their first 16 windows equal to the plain version's); the
+     equal, their first 16 windows equal to the plain version's); K4
+     (the BlobNet encoder stage's tail) on the four stages of the 68x120
+     and 45x80 grids at B*T = 2048, within 1e-6 of the largest output of
+     its plain version (cuDNN's BatchNorm and cuBLAS's K = 4 products
+     round in other orders); the
      MOG2 kernel's short division against `__fdiv_rn` over 7 * 2^26
      seeded pairs and the edges; times each kernel at the main path's
      shapes as device time per launch (a CUDA graph of 100 launches, for
@@ -47,7 +51,10 @@ took are printed as it ends:
      once a chunk), its four CSVs byte-identical to the port's run on the
      CPU;
   5  the host-tracking masks step (`run_chunk_masks`) timed at R=8,
-     F=128 on 45x80 and 68x120, and a sub-chunk against the CPU;
+     F=128 on 45x80 and 68x120, and a sub-chunk against the CPU; the
+     split of a 68x120 chunk (R=4): preprocessing, the encoder's
+     convolutions, K4, the transposed convolutions, the decoder's other
+     ops, the head, the threshold and pack;
   6  the default `CovaPipeline` (host_tracking=True) on the same clip,
      its CSVs byte-identical to the port's run on the CPU;
   7  the pixel-domain oracle: full-width YOLOv4-608 (80 classes) on
@@ -171,6 +178,10 @@ KERNELS = {
     "h264_inter": ("cuda", "cova_tpu_torch/csrc/h264_inter.cu", "cova_tpu/csrc/pixdec.cc"),
     "h264_intra": ("cuda", "cova_tpu_torch/csrc/h264_intra.cu", "cova_tpu/csrc/pixdec.cc"),
     "h264_deblock": ("cuda", "cova_tpu_torch/csrc/h264_deblock.cu", "cova_tpu/csrc/pixdec.cc"),
+    # No Pallas original: XLA's fusion of BlobNet's encoder tail (relu,
+    # BatchNorm, the pool and pad, PointWiseTemporal); no one torch op
+    # computes that tail, so library_ms is null.
+    "blob_stage": ("cuda", "cova_tpu_torch/csrc/blob_stage.cu", "cova_tpu/models/blobnet.py:152"),
 }
 
 
@@ -344,6 +355,18 @@ SORT_CHECK_F = 16
 # race in the kernel's atomics shows as a difference between repeats).
 GRAPH_LAUNCHES = 100
 REPEATS = 3
+# K4 at the benchmark's chunk (R=4 ranges x F=128 windows, B*T = 2048) on
+# both grids, with the weights each grid's pipeline loads; held to its
+# plain version within K4_REL_TOL of the stage's largest output (BatchNorm
+# and the K = 4 mixes round in other orders in cuDNN and cuBLAS).
+K4_WINDOWS = 4 * 128
+K4_GRIDS = (("blobnet_demo1080.npz", (68, 120)), ("blobnet_demo.npz", (45, 80)))
+K4_REL_TOL = 1e-6
+# Operations of csrc/blob_stage.cu a pooled cell and timestep: relu,
+# subtraction and fused multiply-add (2) on each of the 4 taps, 3 maxes,
+# each of the two mixes' product and three fused multiply-adds (7) and
+# relu, the residual add and the last relu.
+K4_OPS_PER_CELL = 4 * 4 + 3 + 2 * 8 + 2
 
 
 def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
@@ -506,6 +529,64 @@ def phase2_cc(floor: float) -> dict:
     return {"name": "cc_label", "route": route, "source": source, "replaces": replaces,
             "max_abs_err": max_err, "library_ms": None,
             **timed["B=1024 45x80 p=0.05"]}
+
+
+def phase2_blob_stage(floor: float) -> dict:
+    """K4 against its plain version on the card at the main path's
+    shapes: every encoder stage of the 68x120 and 45x80 grids at
+    K4_WINDOWS windows, the convolution's output seeded in the layout
+    cuDNN gives it (channels-last for stage 1, NCHW after), the stage's
+    BatchNorm and mixes from the grid's weights; within K4_REL_TOL of the
+    largest output, REPEATS times. Device ms a launch (graph), the
+    wrapper's call, the plain version, the bound by bytes (the part of
+    the convolution's output the pool reads, once, and the stage's output
+    written once).
+    Returns the JSON record of stage 1 at 68x120 (without launches)."""
+    import torch
+
+    from cova_tpu_torch.models.blobnet import load_artifact
+    from cova_tpu_torch.ops.cuda.blob_stage import blob_stage, blob_stage_plain
+    from cova_tpu_torch.pipeline.compressed import exact_float32
+
+    exact_float32("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b = K4_WINDOWS
+    timed, max_err = {}, 0.0
+    for weights, (h, w) in K4_GRIDS:
+        model = load_artifact(REPO / "artifacts" / weights, "cuda")[0]
+        for i, (conv, bn, pwt) in enumerate(zip(model.enc_conv, model.enc_bn, model.enc_pwt)):
+            c = conv.out_channels
+            y = torch.randn(b * 4, c, h, w, device="cuda", generator=gen)
+            layout = "channels-last" if i == 0 else "NCHW"
+            if i == 0:
+                y = y.contiguous(memory_format=torch.channels_last)
+            label = f"stage {i + 1} {h}x{w} C={c} B*T={b * 4} {layout}"
+            with torch.no_grad():
+                ref = blob_stage_plain(y, bn, pwt, b)
+                scale = float(ref.abs().max())
+                for _ in range(REPEATS):
+                    got = blob_stage(y, bn, pwt, b)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    if got.shape != ref.shape or not got.is_contiguous() or \
+                            err > K4_REL_TOL * scale:
+                        raise AssertionError(f"{label}: K4 {tuple(got.shape)} off the plain "
+                                             f"version by {err} (largest output {scale})")
+                    max_err = max(max_err, err)
+                # The pool reads 2 * (H // 2) rows by 2 * (W // 2) columns a plane.
+                read = b * 4 * c * 2 * (h // 2) * 2 * (w // 2)
+                nbytes = 4 * (read + ref.numel() + 4 * c + sum(m.numel() for m in pwt.mix))
+                timed[label], text = _timing(
+                    lambda: blob_stage(y, bn, pwt, b), lambda: blob_stage_plain(y, bn, pwt, b),
+                    nbytes, ref.numel() * K4_OPS_PER_CELL, floor)
+            log(f"[2] blob_stage {label}: within {err / scale:.3g} of the largest output "
+                f"({scale:.4g}) of plain, {REPEATS} times; {text}")
+            h, w = ref.shape[-2:]
+            del y, ref, got
+    route, source, replaces = KERNELS["blob_stage"]
+    return {"name": "blob_stage", "route": route, "source": source, "replaces": replaces,
+            "max_abs_err": max_err, "library_ms": None,
+            **timed[f"stage 1 68x120 C=16 B*T={b * 4} channels-last"]}
 
 
 def _nms_case(seed, n, classes, spread=600.0, ties=False, top=1.0, ordered=False):
@@ -1404,6 +1485,72 @@ def phase4_pipeline(mp4, samples, tmp) -> tuple:
     return res, launches
 
 
+def _masks_split(model, cfg, md, runs: int = 10) -> dict:
+    """Device ms of each part of the masks step (compressed_masks_step) on
+    the device chunk `md`, read from the step itself: CUDA events recorded
+    on the stream at the edges of the model's own submodules (the
+    encoder's convolutions, the decoder's transposed convolutions, cuDNN's
+    dgrad engine, the head's 1x1 convolution) and of each K4 launch
+    (BlobNet's `blob_stage`, wrapped for the runs). The time between two
+    events goes to the part it lies in: preprocessing (unpack_wire16,
+    metapreprocess) before the first convolution, the decoder's relu,
+    crop, BatchNorm and concatenation around the transposed convolutions,
+    the sigmoid, threshold and pack after the head. Medians over `runs`
+    steps after a warm-up; "whole step" is the median from the first
+    event to the last."""
+    import torch
+
+    from cova_tpu_torch.models import blobnet
+    from cova_tpu_torch.pipeline.compressed import compressed_masks_step
+
+    parts = ("preprocess", "encoder convs", "K4", "transposed convs (dgrad)",
+             "decoder relu/crop/BN/cat", "head", "sigmoid, threshold and pack")
+    marks = []  # (the part that starts here, event)
+
+    def mark(part):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((part, ev))
+
+    def hooks(module, before, after):
+        return (module.register_forward_pre_hook(lambda *_: mark(before)),
+                module.register_forward_hook(lambda *_: mark(after)))
+
+    handles = [h for conv in model.enc_conv for h in hooks(conv, "encoder convs", "K4")]
+    handles += [h for convt in model.dec_convt
+                for h in hooks(convt, "transposed convs (dgrad)", "decoder relu/crop/BN/cat")]
+    handles += hooks(model.head, "head", "sigmoid, threshold and pack")
+    k4 = blobnet.blob_stage
+
+    def timed_k4(*args):
+        mark("K4")
+        out = k4(*args)
+        mark("decoder relu/crop/BN/cat")
+        return out
+
+    blobnet.blob_stage = timed_k4
+    runs_ms = []
+    try:
+        for i in range(runs + 1):
+            marks.clear()
+            mark("preprocess")
+            compressed_masks_step(model, cfg, md)
+            mark(None)
+            torch.cuda.synchronize()
+            if i == 0:  # warm-up
+                continue
+            got = dict.fromkeys(parts, 0.0)
+            for (part, ev), (_, nxt) in zip(marks, marks[1:]):
+                got[part] += ev.elapsed_time(nxt)
+            got["whole step"] = marks[0][1].elapsed_time(marks[-1][1])
+            runs_ms.append(got)
+    finally:
+        blobnet.blob_stage = k4
+        for h in handles:
+            h.remove()
+    return {k: statistics.median(r[k] for r in runs_ms) for k in runs_ms[0]}
+
+
 def phase5_masks_step() -> None:
     """The host-tracking device step, run_chunk_masks, on a seeded
     production chunk (R=8, F=128, T=4) at 45x80 and 68x120: its time, and
@@ -1448,6 +1595,13 @@ def phase5_masks_step() -> None:
             f"{host_ms:.3f} ms from host memory, {dev_ms:.3f} ms from a device "
             f"chunk; {on:.4f} of pixels on"
         )
+        if (h, w) == (68, 120):
+            split = _masks_split(stage.models[0], cfg, md[:4])
+            parts = sum(v for k, v in split.items() if k != "whole step")
+            log(f"[5] the split of a 68x120 chunk (R=4, F={f}), device ms of each part "
+                "within the step (medians of 10): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"; the parts sum to {parts:.3f}")
 
         rs, fs = 2, 16
         small = chunk[:rs, : fs + t - 1]
@@ -2410,6 +2564,7 @@ BENCH_DEVICE_REPS = 4
 
 def _launches(reset: bool = False) -> dict:
     """The kernels' launch counts; `reset` sets them to 0 after."""
+    from cova_tpu_torch.ops.cuda.blob_stage import blob_stage
     from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
     from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk
     from cova_tpu_torch.ops.cuda.nms_kernel import nms
@@ -2419,7 +2574,8 @@ def _launches(reset: bool = False) -> dict:
 
     wrappers = {"cc_label": connected_components, "nms": nms, "mog2": mog2_chunk,
                 "sort_scan": sort_scan, "h264_inter": K.h264_inter,
-                "h264_intra": K.h264_intra, "h264_deblock": K.h264_deblock}
+                "h264_intra": K.h264_intra, "h264_deblock": K.h264_deblock,
+                "blob_stage": blob_stage}
     counts = {name: w.launches for name, w in wrappers.items()}
     if reset:
         for w in wrappers.values():
@@ -2445,7 +2601,7 @@ def phase13_bench() -> None:
     """cova_tpu_torch.bench on the card on both committed renders: the
     first chunk's packed masks against the port on the CPU, then the
     passes (one JSON line each render); platform cuda, frames a pass
-    equal to the demuxer's windows, no launch of K1, K5 or K6."""
+    equal to the demuxer's windows, K4 the only kernel launched."""
     import os
 
     import numpy as np
@@ -2483,18 +2639,20 @@ def phase13_bench() -> None:
         if out["platform"] != "cuda" or out["frames_per_pass"] != windows:
             raise AssertionError(f"{video.name}: platform {out['platform']}, frames a pass "
                                  f"{out['frames_per_pass']} (the demuxer's windows: {windows})")
-        if any(launches.values()):
-            raise AssertionError(f"the bench launched {launches}: its path runs no kernel")
+        others = {k: n for k, n in launches.items() if k != "blob_stage"}
+        if any(others.values()) or not launches["blob_stage"]:
+            raise AssertionError(f"the bench launched {launches}: its path runs K4 alone")
         log(f"[13] {video.name}: compressed_domain_fps {out['value']} (CPU time), wall_fps "
             f"{out['wall_fps']}, device_fps {out['device_fps']}, frames a pass {windows} "
             f"(the demuxer's windows), kernel launches {launches}")
 
 
-def phase14_1080p(tmp: pathlib.Path) -> None:
+def phase14_1080p(tmp: pathlib.Path) -> int:
     """reproduce_1080p's CovaPipeline configuration (4 ranges,
     blobnet_demo1080.npz, cc 7, mask 0.6, the tracker's defaults) with
     last="select" on the whole 1080p render, on the card and on the CPU:
-    the four CSVs byte-identical."""
+    the four CSVs byte-identical; K4 the only kernel, four launches a
+    chunk. Returns K4's launches."""
     from cova_tpu_torch.codec import Mp4Demuxer
     from cova_tpu_torch.examples.reproduce_1080p import WEIGHTS_1080P, operating_point
     from cova_tpu_torch.models.blobnet import load_artifact
@@ -2502,16 +2660,18 @@ def phase14_1080p(tmp: pathlib.Path) -> None:
     _, sd, meta = load_artifact(WEIGHTS_1080P, "cpu")
     cfg = operating_point(meta, last="select")
     samples = Mp4Demuxer(str(SYNTH_RENDER_1080P)).num_samples
-    _launches(reset=True)
-    res, _, _ = _run_pipeline("14", SYNTH_RENDER_1080P, tmp / "out14", cfg, sd, "cuda", samples)
-    launches = _launches()
+    res, launches, n_chunks = _run_pipeline("14", SYNTH_RENDER_1080P, tmp / "out14", cfg, sd,
+                                            "cuda", samples)
     cpu, _, _ = _run_pipeline("14", SYNTH_RENDER_1080P, tmp / "out14cpu", cfg, sd, "cpu",
                               samples)
     _same_csvs("14", tmp / "out14", tmp / "out14cpu", res, cpu)
-    if any(launches.values()):
-        raise AssertionError(f"the 1080p pipeline launched {launches}: its path runs no kernel")
+    others = {k: n for k, n in launches.items() if k != "blob_stage"}
+    if any(others.values()) or launches["blob_stage"] != 4 * n_chunks:
+        raise AssertionError(f"the 1080p pipeline launched {launches} for {n_chunks} chunks: "
+                             "its path runs K4 alone, four launches a chunk")
     log(f"[14] the four CSVs of the card run equal the CPU run's, byte for byte, over all "
         f"{samples} frames; kernel launches {launches}")
+    return launches["blob_stage"]
 
 
 # --- phase 15: the pixel decoder (K8-K10) ------------------------------------
@@ -3155,7 +3315,8 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor),
-               "mog2": phase2_mog2(floor), "sort_scan": phase2_sort(floor)}
+               "mog2": phase2_mog2(floor), "sort_scan": phase2_sort(floor),
+               "blob_stage": phase2_blob_stage(floor)}
     lap(2)
     if args.kernels_only:
         for rec in records.values():
@@ -3196,7 +3357,7 @@ def main(argv=None) -> int:
         lap(12)
         phase13_bench()
         lap(13)
-        phase14_1080p(tmp)
+        records["blob_stage"]["launches"] = phase14_1080p(tmp)
         lap(14)
         records.update(phase15_pixdec(tmp, floor))
         records["nms"]["launches_15d"] = phase15d_oracle(tmp)

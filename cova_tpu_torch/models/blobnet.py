@@ -5,7 +5,8 @@ PyTorch (port of cova_tpu/models/blobnet.py).
   [16, 32, 64, 128]) + relu + BatchNorm + MaxPool 2x2, zero-padded
   top/left when the pooled dim was odd, + a residual point-wise temporal
   block (two TxT mixes over the T axis, each with relu and dropout,
-  residual add, relu);
+  residual add, relu); in eval mode on the card everything after the
+  convolution is one launch of K4 (ops/cuda/blob_stage.py);
 * decoder: first temporal slice of each encoder output (reversed),
   4 ConvTranspose(4x4, stride 2, VALID) upsample blocks (channels
   [64, 32, 16, 16]), each preceded by relu and dropout and followed by a
@@ -36,6 +37,7 @@ package loads the other's weights.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import pathlib
 from typing import Sequence
@@ -44,6 +46,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cova_tpu_torch import trace
+from cova_tpu_torch.ops.cuda.blob_stage import blob_stage, blob_stage_plain
 
 BN_EPS = 1e-5  # Flax BatchNorm default, same as torch's
 BN_MOMENTUM = 0.99  # Flax's: running = 0.99 * running + 0.01 * batch
@@ -131,17 +136,6 @@ def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, process_group=None) -> torc
     return (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
 
 
-def _pool_pad(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool 2x2 (floor) over H, W of (N, C, H, W), then zero-pad
-    top/left where the unpooled dim was odd."""
-    h, w = x.shape[-2:]
-    if h >= 2 and w >= 2:
-        y = F.max_pool2d(x, 2)
-    else:  # a size-1 dim pools to size 0 (torch refuses that) and pads to 1
-        y = x.new_zeros(x.shape[:-2] + (h // 2, w // 2))
-    return F.pad(y, (w % 2, 0, h % 2, 0))
-
-
 def _crop_or_pad_center(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     """Center crop/pad the last two dims to (th, tw); the extra element
     goes first."""
@@ -219,17 +213,29 @@ class BlobNet(nn.Module):
         """x: (B, T, H, W, C) float -> (B, H, W) float32 probabilities.
         In train mode with dropout, `generator` (on x's device) draws the
         masks; with `process_group`, BatchNorm's batch statistics are
-        those of the group's global batch (`_batch_norm`)."""
+        those of the group's global batch (`_batch_norm`).
+
+        Each encoder stage's tail after its convolution runs as one launch
+        of K4 (ops/cuda/blob_stage.py) in eval mode on CUDA, which raises
+        on what the kernel does not take (a gradient asked for: run the
+        eval forward under torch.no_grad()); in train mode and on the CPU
+        as `blob_stage_plain`. The counters `blobnet.stages` and
+        `blobnet.stages_fused` count the stages run and those sent to K4."""
         b, t, h0, w0, c = x.shape
         drop = self.training and self.config.dropout > 0.0
         x = x.to(torch.float32).permute(0, 1, 4, 2, 3)  # (B, T, C, H, W)
         skips = []
         for conv, bn, pwt in zip(self.enc_conv, self.enc_bn, self.enc_pwt):
-            y = x.reshape((b * t,) + x.shape[2:])
-            y = _batch_norm(bn, F.relu(conv(y)), process_group)
-            y = _pool_pad(y)
-            x = pwt(y.reshape((b, t) + y.shape[1:]), generator)
+            y = conv(x.reshape((b * t,) + x.shape[2:]))
+            trace.count("blobnet.stages")
+            if self.training or not y.is_cuda:
+                norm = functools.partial(_batch_norm, bn, process_group=process_group)
+                x = blob_stage_plain(y, norm, pwt, b, generator)
+            else:
+                trace.count("blobnet.stages_fused")
+                x = blob_stage(y, bn, pwt, b)
             skips.append(x)
+            del y  # the convolution's output, a stage's largest tensor, dies with its tail
 
         feats = [s[:, 0] for s in reversed(skips)]  # (B, C, H, W) each
         targets = [f.shape[-2:] for f in feats[1:]] + [(h0, w0)]
