@@ -14,12 +14,13 @@ layer held to the reference given what that layer received.
   pictures   each frame the oracle received against libavcodec's
              decode of the same sample (exact), and the set of them
              against the reference's schedule
-  heads      the network's outputs against the plain YOLOv4's on the
-             same picture: the widest gap over the largest magnitude
-  detections the oracle's boxes against the plain decode and NMS of its
-             own heads (class, score, box)
+  oracle     each of those frames through the oracle's own numbers
+             (oracles/<arch>.py): what its network produced and the
+             boxes it gave, against its plain reference
   csvs       the aggregator's four CSVs against the plain associator
              replayed on the calls the aggregator received (exact)
+
+The limits of a cell are LIMITS and its oracle module's.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from bench_port import digests
 from bench_port.ref import associator_ref
 
 # Limits, each set between the readings of sound runs and of the
-# control (PERF.md gives the readings).
+# control (PERF.md gives the readings); the oracle's are its module's.
 LIMITS = {
     "jobs_failed": 0,
     "chunks_off": 0,
@@ -43,8 +44,6 @@ LIMITS = {
     "schedule_jobs_off": 0,
     "track_jobs_off": 0,
     "pictures_off": 0,
-    "head_gap": 5e-5,
-    "detections_off": 0,
     "csv_files_off": 0,
 }
 CSVS = ("track.csv", "dnn.csv", "assoc.csv", "stationary.csv")
@@ -129,6 +128,14 @@ def head_gap(got, ref) -> float:
                for g, r in zip(got, ref))
 
 
+class Box:
+    """A reference detection in the shape of the program's BoxRec."""
+
+    def __init__(self, class_id, confidence, left, top, width, height):
+        self.class_id, self.confidence = class_id, confidence
+        self.left, self.top, self.width, self.height = left, top, width, height
+
+
 def detections_off(prog_recs, ref_dets, tol_px: float = 1e-3, tol_score: float = 1e-5) -> int:
     """Boxes of one frame without a counterpart on the other side, both
     in descending score order."""
@@ -158,9 +165,28 @@ def csv_files_off(job_dir, ref_csvs) -> int:
     return sum((pathlib.Path(job_dir) / n).read_bytes() != ref_csvs[n] for n in CSVS)
 
 
-def verdict(numbers: dict) -> bool:
-    return all(numbers[k] <= LIMITS[k] for k in numbers)
+def fold(total: dict, numbers: dict, folds: dict) -> None:
+    """Fold one frame's `numbers` into `total`, each by its `folds` entry."""
+    for k, v in numbers.items():
+        total[k] = folds[k](total[k], v)
 
 
-def lines(numbers: dict) -> list:
-    return [f"{k} {numbers[k]!r} limit {LIMITS[k]!r}" for k in numbers]
+def oracle_numbers(oracle, reference, frames, outputs_of: dict) -> dict:
+    """The oracle module's numbers over frames [(key, y, u, v, boxes,
+    outputs)]: each frame's captured outputs and boxes against the
+    reference on its picture, whose outputs are made once a key
+    (`outputs_of` keeps them), folded over the frames."""
+    total = dict.fromkeys(oracle.LIMITS, 0)
+    for key, y, u, v, recs, outs in frames:
+        if key not in outputs_of:
+            outputs_of[key] = reference.outputs(y, u, v)
+        fold(total, reference.numbers(outputs_of[key], outs, recs, y.shape), oracle.FOLD)
+    return total
+
+
+def verdict(numbers: dict, limits: dict) -> bool:
+    return all(numbers[k] <= limits[k] for k in numbers)
+
+
+def lines(numbers: dict, limits: dict) -> list:
+    return [f"{k} {numbers[k]!r} limit {limits[k]!r}" for k in numbers]

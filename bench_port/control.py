@@ -21,21 +21,21 @@ from bench_port import check, run
 
 
 def control_readings(cell, jobs) -> dict:
-    """mask_gap, head_gap and detections_off of the TF32 reference against
-    the float32 reference, on the window's inputs."""
+    """mask_gap and the oracle's numbers of the TF32 reference against the
+    float32 reference, on the window's inputs."""
     import torch
 
-    from bench_port.ref import blobnet_ref, yolov4_ref
+    from bench_port.ref import blobnet_ref
 
     cc = cell.conf["pipeline"]["compressed"]
     f, t = cell.cfg.compressed.batch_frames, cell.cfg.video.timestep
     thr = cell.cfg.compressed.mask_threshold
     blob = blobnet_ref.load(run.ROOT / cell.conf["blobnet"], cell.device)
-    yolo = yolov4_ref.Yolo(cell.flat) if cell.flat is not None else None
-    o = cell.conf["oracle"]
+    reference = None
     out = {"mask_gap": 0.0, "mask_bits_off": 0}
-    if yolo is not None:
-        out.update(head_gap=0.0, detections_off=0)
+    if cell.detector is not None:
+        reference = cell.oracle.Reference(cell.conf["oracle"], cell.detector.weights, cell.device)
+        out.update(dict.fromkeys(cell.oracle.LIMITS, 0))
     done = set()
     for job in jobs:
         if job.error or job.rotation in done:
@@ -56,29 +56,10 @@ def control_readings(cell, jobs) -> dict:
             out["mask_gap"] = max(out["mask_gap"], gap)
             out["mask_bits_off"] += nbits
         for ts, y, u, v, _, _ in job.frames:
-            planes = [torch.from_numpy(p).to(cell.device) for p in (y, u, v)]
-            heads = {}
-            for tf32 in (False, True):
-                torch.backends.cudnn.allow_tf32 = tf32
-                torch.backends.cuda.matmul.allow_tf32 = tf32
-                heads[tf32] = yolo.heads(yolov4_ref.to_input(*planes, o["input_size"]))
-            out["head_gap"] = max(out["head_gap"], check.head_gap(heads[True], heads[False]))
-            dets = [yolov4_ref.detections(heads[k], yolo.yolo_layers(), o["input_size"],
-                                          y.shape, o["score_threshold"], o["nms_iou"])
-                    for k in (True, False)]
-            got = [_Box(*d) for d in dets[0]]
-            out["detections_off"] += check.detections_off(got, dets[1])
+            check.fold(out, reference.control(y, u, v), cell.oracle.FOLD)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return out
-
-
-class _Box:
-    """A reference detection in the shape of the program's BoxRec."""
-
-    def __init__(self, class_id, confidence, left, top, width, height):
-        self.class_id, self.confidence = class_id, confidence
-        self.left, self.top, self.width, self.height = left, top, width, height
 
 
 def main(argv=None) -> int:

@@ -17,7 +17,12 @@ per-layer metrics, each read by metrics/<name>.py. A --trace 0 run traces
 its window too where one of the cell's end-to-end metrics is read from
 the device's trace.
 
-Exits non-zero, printing no result, without a CUDA device.
+The oracle is the configuration's: `oracle.arch` names its module,
+oracles/<arch>.py, which builds the program's detector and the plain
+reference and states the oracle's numbers and limits.
+
+Exits non-zero, printing no result, without a CUDA device, and where the
+process holds JAX or the JAX package once the window has closed.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 HERE = ROOT / "bench_port"
 PEAK_FP32 = 67e12  # H100 SXM, float32 outside the tensor cores (data sheet)
+# Top-level modules the process that prints a result may not hold: the
+# benchmark measures the port alone.
+FORBIDDEN = ("jax", "jaxlib", "flax", "cova_tpu")
 
 
 def set_environment() -> None:
@@ -93,7 +101,7 @@ class Job:
     masks: list = dataclasses.field(default_factory=list)
     masks_shape: tuple = ()
     calls: list = dataclasses.field(default_factory=list)
-    frames: list = dataclasses.field(default_factory=list)  # (ts, y, u, v, recs, heads)
+    frames: list = dataclasses.field(default_factory=list)  # (ts, y, u, v, recs, outputs)
     oracle_s: float = 0.0
     cpu_s: float = 0.0
 
@@ -102,9 +110,7 @@ class Cell:
     """Everything a run of one cell needs, built in set-up."""
 
     def __init__(self, name: str, seed: int, device: str = "cuda"):
-        import torch
-
-        from bench_port import streams, weights
+        from bench_port import check, oracles, streams
 
         bench = json.loads((ROOT / "BENCHMARK.json").read_text())
         self.cell = next(w for w in bench["workloads"] if w["name"] == name)
@@ -118,6 +124,12 @@ class Cell:
             raise ValueError(f"traffic keys the generator does not read: {sorted(unknown)}")
         self.last = self.traffic["last"]
         self.cycle = int(self.traffic.get("cycle", 1))
+        self.oracle = oracles.load(self.conf)
+        self.limits = dict(check.LIMITS)
+        if self.last == "full":
+            self.limits.update(self.oracle.LIMITS)
+        else:
+            del self.limits["pictures_off"]
 
         from cova_tpu_torch.config import CovaConfig
         from cova_tpu_torch.models.blobnet import load_artifact
@@ -134,32 +146,8 @@ class Cell:
             self.paths[r] = str(p)
             self.samples[r] = streams.read_mp4(p).samples
         self.detector = None
-        self.flat = None
         if self.last == "full":
-            from cova_tpu_torch.models.yolov4 import YOLOv4, YoloDetector, darknet_convs, postprocess
-
-            o = self.conf["oracle"]
-            self.flat = weights.seeded_flat(seed, device, o["weight_gain"])
-            with torch.device(device):
-                model = YOLOv4(o["num_classes"])
-            weights.load_into(model, darknet_convs(model), self.flat)
-
-            def post(outs):
-                return postprocess(outs, o["num_classes"], o["input_size"],
-                                   score_threshold=o["score_threshold"],
-                                   nms_iou=o["nms_iou"])
-
-            self.detector = YoloDetector(model.eval(), post, o["input_size"], device)
-            self._heads = None
-            network = self.detector.network
-
-            def capture_network(x):
-                out = network(x)
-                if self._heads is not None:
-                    self._heads.append(out)
-                return out
-
-            self.detector.network = capture_network
+            self.detector = self.oracle.Program(self.conf["oracle"], seed, device)
 
     def job(self, k: int, rotation: int, max_frames=None) -> Job:
         import torch
@@ -174,15 +162,10 @@ class Cell:
                 recs = []
                 for fr in frames:
                     with record_function("bench.oracle"):
-                        self._heads = []
                         t = time.perf_counter()
                         got = self.detector([fr])
                         job.oracle_s += time.perf_counter() - t
-                    # The heads leave the card as soon as the detector is
-                    # done with them, so the device's peak is the program's.
-                    heads = [tuple(h.to("cpu") for h in out) for out in self._heads]
-                    job.frames.append((*fr, got, heads))
-                    self._heads = None
+                    job.frames.append((*fr, got, self.detector.take()))
                     recs += got
                 return recs
 
@@ -266,6 +249,7 @@ class Cell:
             d.close()
             pts, y, u, v = got
             self.detector([(pts / d.timescale, y, u, v)])
+            self.detector.take()
         if torch.device(self.device).type == "cuda":
             torch.cuda.synchronize()
 
@@ -297,28 +281,24 @@ def compare(cell: Cell, jobs: list) -> dict:
     import torch
 
     from bench_port import check, digests
-    from bench_port.ref import blobnet_ref, yolov4_ref
+    from bench_port.ref import blobnet_ref
 
     expected = json.loads((HERE / "ref" / "expected" / f"{cell.conf['name']}.json").read_text())
-    pictures = json.loads((HERE / "ref" / "pictures.json").read_text())["frames"][
-        pathlib.Path(cell.conf["input"]).name]
+    clip = pathlib.Path(cell.conf["input"]).stem
+    pictures = json.loads((HERE / "ref" / "pictures" / f"{clip}.json").read_text())["frames"]
     cc = cell.conf["pipeline"]["compressed"]
     f = cell.cfg.compressed.batch_frames
     t = cell.cfg.video.timestep
     g = cell.cfg.compressed.gamma
     thr = cell.cfg.compressed.mask_threshold
-    n = dict.fromkeys(check.LIMITS, 0)
-    n["mask_gap"] = n["head_gap"] = 0.0
-    if cell.last != "full":
-        for k in ("pictures_off", "head_gap", "detections_off"):
-            del n[k]
+    n = {k: 0 for k in cell.limits if k in check.LIMITS}
+    n["mask_gap"] = 0.0
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     blob = blobnet_ref.load(ROOT / cell.conf["blobnet"], cell.device)
-    probs_of, heads_of = {}, {}
-    seen_dets = mask_bits = 0
-    yolo = yolov4_ref.Yolo(cell.flat) if cell.flat is not None else None
-    o = cell.conf["oracle"]
+    probs_of, outputs_of = {}, {}
+    oracle_frames = []
+    mask_bits = 0
     for job in jobs:
         if job.error:
             n["jobs_failed"] += 1
@@ -354,24 +334,19 @@ def compare(cell: Cell, jobs: list) -> dict:
             ts_scale = cell.src.timescale
             seen = sorted(int(round(fr[0] * ts_scale)) for fr in job.frames)
             n["schedule_jobs_off"] += seen != exp["inference_pts"]
-            for ts, y, u, v, recs, heads in job.frames:
+            for ts, y, u, v, recs, outs in job.frames:
                 pts = int(round(ts * ts_scale))
                 n["pictures_off"] += digests.picture(y, u, v) != pictures[
                     str(rot.source_pts(pts))]
-                key = (job.rotation, pts)
-                if key not in heads_of:
-                    planes = [torch.from_numpy(p).to(cell.device) for p in (y, u, v)]
-                    heads_of[key] = yolo.heads(yolov4_ref.to_input(*planes, o["input_size"]))
-                got = [h.to(cell.device) for h in heads[0]]
-                n["head_gap"] = max(n["head_gap"], check.head_gap(got, heads_of[key]))
-                ref = yolov4_ref.detections(got, yolo.yolo_layers(), o["input_size"],
-                                            y.shape, o["score_threshold"], o["nms_iou"])
-                n["detections_off"] += check.detections_off(recs, ref)
-                seen_dets += len(recs)
+                oracle_frames.append(((job.rotation, pts), y, u, v, recs, outs))
         ref_csvs = check.replay_csvs(job.calls, job.out_dir + ".ref")
         n["csv_files_off"] += check.csv_files_off(job.out_dir, ref_csvs)
+    if cell.detector is not None:
+        reference = cell.oracle.Reference(cell.conf["oracle"], cell.detector.weights, cell.device)
+        n.update(check.oracle_numbers(cell.oracle, reference, oracle_frames, outputs_of))
     log(f"compared: {len(jobs)} jobs, {mask_bits} mask bits set, "
-        f"{seen_dets} detections, {len(heads_of)} distinct oracle frames")
+        f"{sum(len(f[4]) for f in oracle_frames)} detections, "
+        f"{len(outputs_of)} distinct oracle frames")
     return n
 
 
@@ -402,7 +377,7 @@ def read_metrics(cell: Cell, specs: list, jobs, window_s, tr, setup_s=None) -> t
         pictures=sum(j.result.decoded_dependency + j.result.decoded_inference for j in ok),
         oracle_frames=oracle_frames,
         model_flops=windows * flops.blobnet(grid[1], grid[0])
-        + oracle_frames * (flops.yolo() if cell.last == "full" else 0),
+        + oracle_frames * cell.oracle.flops(),
     )
     out = {}
     for m in specs:
@@ -509,16 +484,20 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     numbers = compare(cell, jobs)
-    correct = check.verdict(numbers)
+    correct = check.verdict(numbers, cell.limits)
     log(f"check {time.perf_counter() - t:.3f} s")
     out = {"correct": correct, "attempted": len(jobs),
            "failed": sum(bool(j.error) for j in jobs), "metrics": metrics, "device": device}
     if breakdown is not None:
         out["breakdown"] = breakdown
-    out["checked"] = {k: {"value": v, "limit": check.LIMITS[k]} for k, v in numbers.items()}
-    for line in check.lines(numbers):
+    out["checked"] = {k: {"value": v, "limit": cell.limits[k]} for k, v in numbers.items()}
+    for line in check.lines(numbers, cell.limits):
         log(line)
     shutil.rmtree(cell.tmp, ignore_errors=True)
+    held = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+    if held:
+        log(f"the process holds {held}: the benchmark measures the port alone")
+        return 4
     print(json.dumps(out), flush=True)
     return 0
 

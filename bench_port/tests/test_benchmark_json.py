@@ -1,11 +1,12 @@
-"""BENCHMARK.json against the harness: every metric has its reader, and
+"""BENCHMARK.json against the harness: every metric has its reader,
 every cell reports set-up, another end-to-end metric and the end-to-end
-metric each of its per-layer metrics moves."""
+metric each of its per-layer metrics moves, and every configuration names
+an oracle whose module the harness can drive."""
 
 import importlib.util
 import json
 
-from bench_port import run
+from bench_port import check, oracles, run
 
 BENCH = json.loads((run.ROOT / "BENCHMARK.json").read_text())
 
@@ -45,3 +46,16 @@ def test_readers_leave_out_what_they_cannot_read():
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         assert mod.read(empty) is None, m["name"]
+
+
+def test_every_config_names_an_oracle_with_the_whole_contract():
+    for c in BENCH["configs"]:
+        conf = json.loads((run.ROOT / c["file"]).read_text())
+        oracle = oracles.load(conf)
+        assert set(oracle.FOLD) == set(oracle.LIMITS), c["name"]
+        assert not set(oracle.LIMITS) & set(check.LIMITS), c["name"]
+        assert oracle.flops() > 0, c["name"]
+        for name in ("__call__", "take"):
+            assert callable(getattr(oracle.Program, name, None)), (c["name"], name)
+        for name in ("outputs", "numbers", "control"):
+            assert callable(getattr(oracle.Reference, name, None)), (c["name"], name)

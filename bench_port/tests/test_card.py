@@ -130,7 +130,7 @@ def test_sound_run_is_correct(card, name):
     cell = cell_of(name)
     jobs, _ = run.window(cell, 0)
     numbers = run.compare(cell, jobs)
-    assert check.verdict(numbers), numbers
+    assert check.verdict(numbers, cell.limits), numbers
 
 
 @pytest.mark.parametrize("name,fault", CASES, ids=[f"{c}-{f.__name__}" for c, f in CASES])
@@ -139,7 +139,7 @@ def test_fault_is_not_correct(card, monkeypatch, name, fault):
     fault(monkeypatch)
     jobs, _ = run.window(cell, 0)
     numbers = run.compare(cell, jobs)
-    assert not check.verdict(numbers), numbers
+    assert not check.verdict(numbers, cell.limits), numbers
 
 
 @pytest.mark.parametrize("name", list(FAULTS))
@@ -147,6 +147,6 @@ def test_control_is_not_correct(card, name):
     cell = cell_of(name)
     jobs, _ = run.window(cell, 0)
     readings = control.control_readings(cell, jobs)
-    failed = [k for k, v in readings.items() if k in check.LIMITS and v > check.LIMITS[k]]
+    failed = [k for k, v in readings.items() if k in cell.limits and v > cell.limits[k]]
     assert failed, readings
     assert np.isfinite(readings["mask_gap"])

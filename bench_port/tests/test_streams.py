@@ -32,7 +32,8 @@ def test_rotation_decodes_to_source_pictures(r, tmp_path):
     from cova_tpu_torch.codec import Mp4Demuxer, PixelDecoder
 
     name = RENDERS[0]
-    pictures = json.loads((HERE / "ref" / "pictures.json").read_text())["frames"][name]
+    clip = pathlib.Path(name).stem
+    pictures = json.loads((HERE / "ref" / "pictures" / f"{clip}.json").read_text())["frames"]
     rot = streams.write_rotated(streams.read_mp4(HERE / "data" / name), tmp_path / "r.mp4", r)
     d = Mp4Demuxer(str(tmp_path / "r.mp4"))
     dec = PixelDecoder(d.extradata(), device="cpu")
