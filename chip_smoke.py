@@ -7,8 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 Phases (--kernels-only stops after phase 2; --k7-split runs phases 0-1
 and then only K7's four timed inputs, for timing two checkouts in turns
-in one call; --pixdec-only runs phases 0-1 and 15a-c); the seconds each
-took are printed as it ends:
+in one call; --pixdec-only runs phases 0-1 and 15a-c; --msda-only runs
+phases 0-1 and K11's part of phase 2); the seconds each took are printed
+as it ends:
   0  the card, the software versions, and the NVDEC probe (recorded, not
      built: is libnvcuvid visible to ldconfig or in the driver's library
      directories, does the toolkit ship nvcuvid.h);
@@ -31,7 +32,10 @@ took are printed as it ends:
      (the BlobNet encoder stage's tail) on the four stages of the 68x120
      and 45x80 grids at B*T = 2048, within 1e-6 of the largest output of
      its plain version (cuDNN's BatchNorm and cuBLAS's K = 4 products
-     round in other orders); the
+     round in other orders); K11 (RT-DETR's deformable attention core) on
+     the six decoder layers' inputs of one frame of the port's RT-DETR-R50
+     on its seeded initialisation and on seeded inputs at the published
+     shapes, within 1e-6 of the largest output of its plain version; the
      MOG2 kernel's short division against `__fdiv_rn` over 7 * 2^26
      seeded pairs and the edges; times each kernel at the main path's
      shapes as device time per launch (a CUDA graph of 100 launches, for
@@ -182,6 +186,10 @@ KERNELS = {
     # BatchNorm, the pool and pad, PointWiseTemporal); no one torch op
     # computes that tail, so library_ms is null.
     "blob_stage": ("cuda", "cova_tpu_torch/csrc/blob_stage.cu", "cova_tpu/models/blobnet.py:152"),
+    # No TPU original: the JAX package has no transformer detector; K11 is
+    # the deformable attention core of the port's RT-DETR oracle, which no
+    # one torch op computes, so library_ms is null.
+    "ms_deform_attn": ("cuda", "cova_tpu_torch/csrc/msda_kernel.cu", None),
 }
 
 
@@ -367,6 +375,12 @@ K4_REL_TOL = 1e-6
 # each of the two mixes' product and three fused multiply-adds (7) and
 # relu, the residual add and the last relu.
 K4_OPS_PER_CELL = 4 * 4 + 3 + 2 * 8 + 2
+# K11 against its plain version: the softmax and the sum over the 12
+# samples round in other orders; the sampling coordinates are the same.
+K11_REL_TOL = 1e-6
+# K11's seeded inputs besides the model's: samples near their boxes,
+# around them and mostly outside the maps (the offsets' scale).
+K11_SPREADS = (1.0, 4.0, 16.0)
 
 
 def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
@@ -587,6 +601,84 @@ def phase2_blob_stage(floor: float) -> dict:
     return {"name": "blob_stage", "route": route, "source": source, "replaces": replaces,
             "max_abs_err": max_err, "library_ms": None,
             **timed[f"stage 1 68x120 C=16 B*T={b * 4} channels-last"]}
+
+
+def _msda_cases() -> tuple:
+    """K11's inputs at RT-DETR-R50's shapes: the six decoder layers' of one
+    frame (phase 7's first synth frame through the port's model on its
+    PyTorch initialisation, seeded with SEED), then seeded random ones
+    (value N(0, 1), boxes of size up to 0.5, offsets at each of
+    K11_SPREADS). Returns ([(label, args)], the frame's launches)."""
+    import torch
+
+    from cova_tpu_torch.models.rtdetr import make_rtdetr_detector
+
+    torch.manual_seed(SEED)
+    detector = make_rtdetr_detector(device="cuda")
+    captured = []
+    for layer in detector.model.decoder.decoder.layers:
+        def grab(*a, _core=layer.cross_attn.ms_deformable_attn_core):
+            captured.append(a)
+            return _core(*a)
+
+        layer.cross_attn.ms_deformable_attn_core = grab
+    from cova_tpu_torch.ops.cuda.msda_kernel import ms_deform_attn
+
+    launches = ms_deform_attn.launches
+    detector(_oracle_frames(1, SEED))
+    launches = ms_deform_attn.launches - launches
+    cases = [(f"RT-DETR layer {i + 1}", a) for i, a in enumerate(captured)]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = [(80, 80), (40, 40), (20, 20)]
+    for spread in K11_SPREADS:
+        boxes = torch.rand(1, 300, 4, device="cuda", generator=g)
+        boxes[..., 2:] *= 0.5
+        cases.append((f"seeded, offsets x{spread:g}", (
+            torch.randn(1, 8400, 8, 32, device="cuda", generator=g), shapes, boxes,
+            spread * torch.randn(1, 300, 192, device="cuda", generator=g),
+            torch.randn(1, 300, 96, device="cuda", generator=g), 3, 4)))
+    return cases, launches
+
+
+def phase2_msda(floor: float) -> dict:
+    """K11 against its plain version on the card (_msda_cases), within
+    K11_REL_TOL of the plain version's largest output, REPEATS times.
+    Device ms a launch (graph), the wrapper's call, the plain version and
+    the bound (`msda_work` beside the wrapper: the value rows the samples
+    touch, read once, the boxes, offsets and logits read once, the output
+    written once; 10 operations a sample and channel).
+    Returns the JSON record of the frame's first layer, with the frame's
+    launches."""
+    import torch
+
+    from cova_tpu_torch.ops.cuda.msda_kernel import ms_deform_attn, msda_work
+    from cova_tpu_torch.ops.msda import ms_deform_attn_plain
+
+    cases, launches = _msda_cases()
+    timed, max_err = {}, 0.0
+    for label, (value, shapes, boxes, offsets, logits, levels, points) in cases:
+        args = (value, shapes, boxes, offsets, logits, levels, points)
+        with torch.no_grad():
+            ref = ms_deform_attn_plain(*args)
+            scale = float(ref.abs().max())
+            for _ in range(REPEATS):
+                got = ms_deform_attn(*args)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                if got.shape != ref.shape or err > K11_REL_TOL * scale:
+                    raise AssertionError(f"{label}: K11 {tuple(got.shape)} off the plain "
+                                         f"version by {err} (largest output {scale})")
+                max_err = max(max_err, err)
+            ops, nbytes = msda_work(tuple(value.shape), shapes, boxes, offsets, levels, points)
+            timed[label], text = _timing(lambda: ms_deform_attn(*args),
+                                         lambda: ms_deform_attn_plain(*args), nbytes, ops, floor)
+        log(f"[2] ms_deform_attn {label}: within {err / scale:.3g} of the largest output "
+            f"({scale:.4g}) of plain, {REPEATS} times; {text}")
+    log(f"[2] ms_deform_attn: {launches} launches for the RT-DETR frame")
+    route, source, replaces = KERNELS["ms_deform_attn"]
+    return {"name": "ms_deform_attn", "route": route, "source": source, "replaces": replaces,
+            "max_abs_err": max_err, "library_ms": None, "launches": launches,
+            **timed["RT-DETR layer 1"]}
 
 
 def _nms_case(seed, n, classes, spread=600.0, ties=False, top=1.0, ordered=False):
@@ -3269,6 +3361,9 @@ def main(argv=None) -> int:
                     help="phases 0-1 and 15 (the pixel decoder's kernels against their "
                          "plain versions, the renders against libavcodec's hashes, the "
                          "last=full run), and stop, with no ok line")
+    ap.add_argument("--msda-only", action="store_true",
+                    help="phases 0-1, then K11 (phase 2's ms_deform_attn: the check against "
+                         "its plain version and its times), and stop, with no ok line")
     ap.add_argument("--k7-split", action="store_true",
                     help="phases 0-1, then K7 alone on its four timed inputs (no "
                          "check against the plain version), and stop, with no ok line: "
@@ -3307,6 +3402,12 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     floor = launch_floor_ms()
+    if args.msda_only:
+        rec = phase2_msda(floor)
+        lap(2)
+        print(json.dumps({"kernels": _kernel_lines({"ms_deform_attn": rec})}))
+        print(smi, flush=True)
+        return 0
     if args.pixdec_only:
         with tempfile.TemporaryDirectory() as td:
             recs = phase15_pixdec(pathlib.Path(td), floor)
@@ -3316,7 +3417,7 @@ def main(argv=None) -> int:
         return 0
     records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor),
                "mog2": phase2_mog2(floor), "sort_scan": phase2_sort(floor),
-               "blob_stage": phase2_blob_stage(floor)}
+               "blob_stage": phase2_blob_stage(floor), "ms_deform_attn": phase2_msda(floor)}
     lap(2)
     if args.kernels_only:
         for rec in records.values():

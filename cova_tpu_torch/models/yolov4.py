@@ -421,7 +421,8 @@ class YoloDetector:
     I420 planes) -> list[BoxRec] in original-frame pixel units, one frame
     per network call (the reference's nvinfer YOLOv4 engine + nvdsbbox
     extraction, config/dnn/yolov4_b2.txt). Its stages are exposed for
-    timing: `preprocess`, `network`, `postprocess`."""
+    timing: `preprocess`, `network`, `postprocess`. The wrapper is the
+    oracles': models/rtdetr.py builds RT-DETR's detector on it too."""
 
     def __init__(self, model: nn.Module, postprocess_fn, input_size: int, device):
         self.model = model
@@ -481,9 +482,13 @@ class YoloDetector:
         return recs
 
     def __call__(self, frames):
+        """BoxRecs of the frames; the boxes kept count in the tracer's
+        `oracle.detections`."""
         recs = []
         for ts, y, u, v in frames:
-            recs += self.boxrecs(ts, y.shape, *self.infer(y, u, v))
+            got = self.boxrecs(ts, y.shape, *self.infer(y, u, v))
+            trace.count("oracle.detections", len(got))
+            recs += got
         return recs
 
 

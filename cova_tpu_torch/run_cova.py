@@ -23,9 +23,12 @@ $COVA_YOLO_CFG names the darknet cfg the weights were trained for (other
 darknet variants load too). The full run decodes the
 selected frames with the port's pixel decoder on --device
 (codec/pixrec.py), and refuses a stream outside its scope with an error
-(pixrec.UnsupportedStreamError). Without $COVA_YOLO_WEIGHTS there is no
-detector, and the run stops after frame selection (last="select"), with
-dnn.csv and assoc.csv empty.
+(pixrec.UnsupportedStreamError). $COVA_RTDETR_WEIGHTS, set instead,
+names a torch state dict of RT-DETR-R50 in its upstream parameter names
+(models/rtdetr.py, K11 in its decoder on a card), which then runs as the
+oracle in the same way. With neither there is no detector, and the run
+stops after frame selection (last="select"), with dnn.csv and assoc.csv
+empty.
 
 --trace PATH runs the job under torch.profiler (with CUDA activity on a
 card) with the port's tracer on (cova_tpu_torch/trace.py), and writes one
@@ -100,6 +103,14 @@ def main(argv=None) -> None:
     # COVA_YOLO_CFG=yolov4.cfg builds the topology from the cfg file.
     detector = None
     yolo = os.environ.get("COVA_YOLO_WEIGHTS")
+    rtdetr = os.environ.get("COVA_RTDETR_WEIGHTS")
+    if yolo and rtdetr:
+        raise SystemExit("set one oracle: COVA_YOLO_WEIGHTS or COVA_RTDETR_WEIGHTS")
+    if rtdetr:
+        from cova_tpu_torch.models.rtdetr import make_rtdetr_detector
+
+        detector = make_rtdetr_detector(rtdetr, device=args.device)
+        print(f"using RT-DETR-R50 oracle from {rtdetr}")
     if yolo:
         from cova_tpu_torch.models.yolov4 import make_yolo_detector
 

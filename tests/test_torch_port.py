@@ -238,6 +238,7 @@ def test_port_imports_no_jax():
         "import cova_tpu_torch.bench, cova_tpu_torch.examples.reproduce_1080p\n"
         "import cova_tpu_torch.examples.fig8\n"
         "import cova_tpu_torch.codec.pixrec, cova_tpu_torch.ops.cuda.h264_kernels\n"
+        "import cova_tpu_torch.models.rtdetr, cova_tpu_torch.ops.cuda.msda_kernel\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'cova_tpu',\n"
         "                                    'pandas'))\n"
@@ -275,6 +276,7 @@ ENTRY_POINTS = [
     ("pipeline.sort_pipeline", "SortPipeline.__init__"),
     ("models.yolov4", "make_yolo_detector"),
     ("models.yolov4", "create_yolov4"),
+    ("models.rtdetr", "make_rtdetr_detector"),
     ("models.darknet_cfg", "create_darknet"),
     ("models.blobnet", "load_artifact"),
     ("models.blobnet", "create_blobnet"),

@@ -43,7 +43,7 @@ SPANS = {
 # `blobnet.stages_fused` (a K4 launch) never appears.
 COUNTERS = {"entdec.frames", "masks.chunks", "pixdec.pictures", "pixdec.uploads",
             "pixdec.upload_bytes", "pixdec.copy_out_bytes", "oracle.frames",
-            "blobnet.stages"}
+            "oracle.detections", "blobnet.stages"}
 # StageTimers field -> the spans whose seconds it sums (pixel_decode is
 # the decode's wall less the oracle's).
 TIMERS = {"entropy_decode": "cova.entdec", "device_dispatch": "cova.masks",
@@ -176,6 +176,7 @@ def test_pipeline_records_every_span_and_counter(traced):
     assert set(counts) == COUNTERS
     assert counts["entdec.frames"] == res.num_frames
     assert counts["oracle.frames"] == res.pixel_frames == names["cova.oracle"]
+    assert counts["oracle.detections"] == 0  # the stub oracle keeps no box
     assert counts["pixdec.pictures"] == names["cova.pixdec.syntax"]
     assert counts["pixdec.pictures"] == res.decoded_dependency + res.decoded_inference
     assert counts["masks.chunks"] == names["cova.masks"]
