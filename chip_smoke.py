@@ -111,12 +111,13 @@ as it ends:
      both committed renders decoded on the card, every popped (pts,
      sha256 of Y, U, V) equal to libavcodec's (data/pixdec_hashes.json),
      frames/s and the split a picture (host syntax, upload, K8, K9, K10,
-     pop), then each kernel timed on the 720p render's first pictures
-     (the launch alone, the wrapper, the plain version, and K9 and K10 as
-     one launch a wave instead); (c) CovaPipeline(last="full") on the 720p
-     render at reproduce_synth's operating point with the background
-     built on the card through decode_luma_halfres: background and CSVs
-     equal to the JAX package's run with libavcodec
+     pop), then each kernel timed on each render's first pictures (the
+     launch alone, the wrapper, the plain version, and K9 as one launch a
+     wave instead; K10's chain of macroblock steps); (c)
+     CovaPipeline(last="full") on the 720p render at reproduce_synth's
+     operating point with the background built on the card through
+     decode_luma_halfres: background and CSVs equal to the JAX package's
+     run with libavcodec
      (data/pixdec_full_csvs.json), K8-K10 launched on this main path; (d)
      the same run with full-width YOLOv4 on seeded weights: K5's launches
      and the run's split (entropy decode, masks, host tracking, pixel
@@ -2926,7 +2927,8 @@ def _h264_bytes(name, pic, before, after) -> int:
 
 def _h264_state(name, pool, slot, pic):
     """What a raw launch of kernel `name` needs (RecArgs and the tensors
-    behind them), and a function that resets its flags."""
+    behind them), a function that resets its flags, and the macroblocks
+    it covers."""
     import torch
 
     from cova_tpu_torch.ops.cuda import h264_kernels as K
@@ -2934,15 +2936,15 @@ def _h264_state(name, pool, slot, pic):
     inter, intra = K._flags(pic)
     if name == "h264_inter":
         lst, done, ticket = inter.nonzero().flatten().to(torch.int32), None, None
-        init = None
+        init, n = None, int(inter.sum())
     elif name == "h264_intra":
         lst = K.wave_order(intra.nonzero().flatten(), pic.mb_w).to(torch.int32)
-        init = (~intra).to(torch.int32)
+        init, n = (~intra).to(torch.int32), int(intra.sum())
         done, ticket = init.clone(), torch.zeros(1, dtype=torch.int32, device="cuda")
     else:
-        n = pic.mb.shape[0]
-        lst = K.wave_order(torch.arange(n, device="cuda"), pic.mb_w).to(torch.int32)
-        init = torch.zeros(n, dtype=torch.int32, device="cuda")
+        # K10: a progress counter a macroblock row, and the row ticket.
+        lst, n = None, pic.mb.shape[0]
+        init = torch.zeros(pic.mb_h, dtype=torch.int32, device="cuda")
         done, ticket = init.clone(), torch.zeros(1, dtype=torch.int32, device="cuda")
     args, keep = K.launch_args(pool, slot, pic, lst, done, ticket)
 
@@ -2951,7 +2953,7 @@ def _h264_state(name, pool, slot, pic):
             done.copy_(init)
             ticket.zero_()
 
-    return args, (keep, lst, done, ticket), reset, lst.numel()
+    return args, (keep, lst, done, ticket), reset, n
 
 
 def _h264_check(pool, slot, pic, stats, time_it):
@@ -3014,27 +3016,33 @@ def _h264_check(pool, slot, pic, stats, time_it):
                 st["ms"].append(statistics.median(ms for _, ms in outs))
                 st["plain_ms"].append(plain_ms)
                 st["bytes"].append(_h264_bytes(name, pic, start, outs[0][0]))
-                if name != "h264_inter":
+                if name == "h264_intra":
                     st["wave_ms"].append(_wave_variant(name, pool, slot, pic, start, outs[0][0]))
-                    st["waves"].append(_wave_count(pic, name))
+                    st["waves"].append(_wave_count(pic))
         pool[slot].copy_(outs[0][0])
 
 
-def _wave_count(pic, name) -> int:
-    """Waves x + 2y the launch's macroblocks span: its chain of dependent
-    steps."""
+def _wave_count(pic) -> int:
+    """Waves x + 2y K9's macroblocks span: its chain of dependent steps."""
     import torch
 
     from cova_tpu_torch.ops.cuda import h264_kernels as K
 
-    n = pic.mb.shape[0]
-    mbs = (K._flags(pic)[1].nonzero().flatten() if name == "h264_intra"
-           else torch.arange(n, device=pic.mb.device))
+    mbs = K._flags(pic)[1].nonzero().flatten()
     return int(torch.unique(mbs % pic.mb_w + 2 * (mbs // pic.mb_w)).numel())
 
 
+def _k10_steps(mb_w, mb_h) -> tuple:
+    """K10's chain where every top edge is filtered: the macroblock steps
+    from the first row's first to the last row's last (a row's H of
+    macroblock x waits for the row above's V of x + 1, so each row runs
+    one step behind the row above), and how many of them hand over from
+    one row to the next."""
+    return mb_w + mb_h - 1, mb_h - 1
+
+
 def _wave_variant(name, pool, slot, pic, start, want) -> float:
-    """The alternative to one launch a picture: one launch a wave (the
+    """K9's alternative to one launch a picture: one launch a wave (the
     same kernel on the wave's macroblocks; every earlier wave is done, so
     no block waits). Device ms of the whole picture (CUDA events around
     the launches), REPEATS runs, each held to the one-launch result."""
@@ -3147,7 +3155,7 @@ def phase15b_renders(stats) -> None:
     """The card's decoder over both committed renders: every popped (pts,
     sha256 of Y, U, V) equal to the libavcodec fixture; frames/s and the
     split a picture; then the kernels timed on PIXDEC_TIMED pictures of
-    the 720p render against their plain versions."""
+    each render against their plain versions."""
     import torch
 
     from cova_tpu_torch.codec import pixrec
@@ -3185,31 +3193,38 @@ def phase15b_renders(stats) -> None:
             f"{split['h264_deblock']:.4f} ms (CUDA events around each wrapper call), pop "
             f"{rec['pop_ms']:.3f} ms")
     # The kernels timed against their plain versions on the first
-    # PIXDEC_TIMED pictures (decode order) of the 720p render.
+    # PIXDEC_TIMED pictures (decode order) of each render; the 720p
+    # render's go to `stats`, the kernel table's.
     from cova_tpu_torch.codec import Mp4Demuxer
 
-    d = Mp4Demuxer(str(SYNTH_RENDER))
-    dec = pixrec.PixelDecoder(d.extradata(), device="cuda")
-    orig = pixrec.reconstruct
-    pixrec.reconstruct = lambda pool, slot, pic: _h264_check(pool, slot, pic, stats, True)
-    try:
-        for i in range(PIXDEC_TIMED):
-            dec.send(d.read_sample(i), d.sample(i).pts)
-    finally:
-        pixrec.reconstruct = orig
-        dec.close()
-        d.close()
-    for k in H264:
-        s = stats[k]
-        log(f"[15b] {k} on {len(s['device_ms'])} pictures of the 720p render: launch "
-            f"{statistics.median(s['device_ms']):.4f} ms (median; CUDA events around the "
-            f"launch alone; per picture {[round(x, 4) for x in s['device_ms']]}), wrapper "
-            f"call {statistics.median(s['ms']):.4f} ms, plain version on the CPU "
-            f"{statistics.median(s['plain_ms']):.1f} ms, {statistics.median(s['bytes'])} bytes")
-        if s["wave_ms"]:
-            log(f"[15b] {k} as one launch a wave instead: {[round(x, 4) for x in s['wave_ms']]} "
-                f"ms per picture over {s['waves']} waves (one launch a picture: "
-                f"{[round(x, 4) for x in s['device_ms']]} ms), results equal")
+    for video, what in ((SYNTH_RENDER, "720p"), (SYNTH_RENDER_1080P, "1088-row")):
+        st = stats if video == SYNTH_RENDER else _h264_stats()
+        d = Mp4Demuxer(str(video))
+        steps, across = _k10_steps((d.width + 15) // 16, (d.height + 15) // 16)
+        dec = pixrec.PixelDecoder(d.extradata(), device="cuda")
+        orig = pixrec.reconstruct
+        pixrec.reconstruct = lambda pool, slot, pic: _h264_check(pool, slot, pic, st, True)
+        try:
+            for i in range(PIXDEC_TIMED):
+                dec.send(d.read_sample(i), d.sample(i).pts)
+        finally:
+            pixrec.reconstruct = orig
+            dec.close()
+            d.close()
+        for k in H264:
+            s = st[k]
+            log(f"[15b] {k} on {len(s['device_ms'])} pictures of the {what} render: launch "
+                f"{statistics.median(s['device_ms']):.4f} ms (median; CUDA events around the "
+                f"launch alone; per picture {[round(x, 4) for x in s['device_ms']]}), wrapper "
+                f"call {statistics.median(s['ms']):.4f} ms, plain version on the CPU "
+                f"{statistics.median(s['plain_ms']):.1f} ms, {statistics.median(s['bytes'])} bytes")
+            if s["wave_ms"]:
+                log(f"[15b] {k} as one launch a wave instead: "
+                    f"{[round(x, 4) for x in s['wave_ms']]} ms per picture over {s['waves']} "
+                    f"waves (one launch a picture: {[round(x, 4) for x in s['device_ms']]} ms), "
+                    f"results equal")
+        log(f"[15b] h264_deblock's chain on the {what} render: {steps} macroblock steps, "
+            f"{across} of them across rows")
 
 
 def _synth_cfg(meta):
@@ -3315,10 +3330,14 @@ def phase15d_oracle(tmp: pathlib.Path) -> int:
     return launches["nms"]
 
 
+def _h264_stats() -> dict:
+    return {k: {"checked": 0, "device_ms": [], "ms": [], "plain_ms": [], "bytes": [],
+                "wave_ms": [], "waves": []} for k in H264}
+
+
 def phase15_pixdec(tmp: pathlib.Path, floor) -> dict:
     """Phase 15: the pixel decoder. Returns the kernel records of K8-K10."""
-    stats = {k: {"checked": 0, "device_ms": [], "ms": [], "plain_ms": [], "bytes": [],
-                 "wave_ms": [], "waves": []} for k in H264}
+    stats = _h264_stats()
     t0 = time.perf_counter()
     phase15a_kernels(stats)
     log(f"[15a] took {time.perf_counter() - t0:.1f} s")

@@ -46,10 +46,11 @@ struct RecArgs {
   const int* ls4;         // S x 6 x 6 x 16 LevelScale4x4
   const int* ls8;         // S x 2 x 6 x 64 LevelScale8x8
   int poc;                // the picture's POC
-  const int* list;        // macroblocks of this launch, in ticket order
+  const int* list;        // macroblocks of this launch, in ticket order (K8, K9)
   int n_list;
-  int* done;              // n: 1 once a macroblock is final (K9, K10)
-  int* ticket;            // next ticket (K9, K10)
+  int* done;              // K9: n, 1 once a macroblock is final; K10: mb_h,
+                          // the macroblocks of each row filtered so far
+  int* ticket;            // next ticket (K9), next row (K10)
 };
 
 __device__ __forceinline__ int clip255(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }

@@ -8,21 +8,61 @@
 // cova_tpu_torch/ops/h264/deblock.py (deblock).
 //
 // Design: the spec filters macroblocks in raster order, each its vertical
-// edges, then its horizontal ones. Macroblock (x, y) reads samples that
-// (x - 1, y) and (x + 1, y - 1) rewrite, so it may go once those are
-// done: a wavefront of waves x + 2y. A block of one warp takes a ticket
-// from a global counter and the macroblock at that place of the
-// wave-ordered list, waits (acquire) on the two flags, filters, and
-// publishes its own flag (release); it waits only on lower tickets,
-// held by running blocks. Threads 0-15 take one luma line of each edge,
-// threads 16-31 one chroma line (8 Cb, 8 Cr) of each chroma edge; each
-// works out its own bS (8.7.2.1) from the two macroblocks' syntax, with
-// reference pictures compared by identity (their pool slots). Bound: the
-// chain of dependent waves (about 170 at 720p), not bytes.
+// edges (V), then its horizontal ones (H). Macroblock (x, y) writes only
+// its own samples and its left and top neighbours'; only H reads the row
+// above, rows 12-15 of (x, y - 1), which (x + 1, y - 1)'s V changes last.
+// A block takes a macroblock row from a global ticket and waits only on
+// the row above, which a running block holds, so it cannot deadlock.
+// Before any wait, all its threads work out the bS (8.7.2.1) of every
+// 4-sample segment of the row's edges, with reference pictures compared
+// by identity (their pool slots), and each edge's indexA and indexB, into
+// shared memory. Then warp 0 walks the row's luma and warp 1 its chroma,
+// left to right, each over a ring of four macroblock columns in shared
+// memory: the left strip is there from the previous step, the
+// macroblock's own samples were fetched during that step (no other
+// macroblock writes them before it runs), and the top strip is fetched
+// before H once the row above's counter reaches x + 2. Lanes 0-15 filter
+// a line each (16 luma; 8 Cb and 8 Cr): across the vertical edges a line
+// is a row, across the horizontal ones a column. After V(x) a step has
+// written back all of macroblock x - 1, and warp 2 publishes x + 1
+// (release) while the others go on; mb_w + 1 ends the row. A direction
+// with no edge of bS > 0 is skipped, and so is the write-back of samples
+// no filtered edge touched; a macroblock whose top edge is not filtered
+// reads nothing of the row above and does not wait for it. Bound: the
+// chain of macroblock steps where every top edge is filtered, each row
+// one step behind the row above (124 at 720p, 44 of them handoffs
+// between rows), not bytes.
 
 #include "h264_common.cuh"
 
 namespace {
+
+constexpr int kThreads = 512;
+// Named barriers of the walk (0 is __syncthreads): the filter warps'
+// arrival at a publication and the publisher's acknowledgement, each
+// alternating by step, for 96 threads (warps 0-2).
+constexpr int kBarPub = 1, kBarAck = 3, kWalkThreads = 96;
+// The rings: luma rows 0-3 hold the top strip, rows 4-19 the macroblock
+// row's 16; 64 columns (four macroblocks) in 68 bytes a row, so that the
+// 16 lanes that each read a row fall into distinct banks. Chroma: rows
+// 0-1 the strip, 2-9 the row's 8; 32 columns in 36 bytes.
+constexpr int kLStride = 68, kCStride = 36;
+// Shared bytes a macroblock of the row: bS [direction][edge][segment],
+// then indexA, indexB [left, top, inner edges][Y, Cb, Cr].
+constexpr int kBsBytes = 32, kIxBytes = 18;
+
+__device__ __forceinline__ uint32_t& word(uint8_t* p) {
+  return *reinterpret_cast<uint32_t*>(p);
+}
+__device__ __forceinline__ uint16_t& half(uint8_t* p) {
+  return *reinterpret_cast<uint16_t*>(p);
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kWalkThreads) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kWalkThreads) : "memory");
+}
 
 __device__ __forceinline__ bool far4(int ax, int ay, int bx, int by) {
   return abs(ax - bx) >= 4 || abs(ay - by) >= 4;
@@ -97,96 +137,292 @@ __device__ void filter_chroma(int* s, int bs, int ia, int ib) {
   }
 }
 
-__global__ void __launch_bounds__(32) h264_deblock_kernel(RecArgs a) {
-  __shared__ int s_m;
-  const int tid = threadIdx.x;
-  if (tid == 0) s_m = a.list[atomicAdd(a.ticket, 1)];
-  __syncwarp();
-  const int m = s_m;
-  const int mx = m % a.mb_w, my = m / a.mb_w;
-  if (tid == 0) {
-    // (x - 1, y), (x + 1, y - 1), and (x, y - 1) for the last column.
-    const int dx[3] = {-1, 1, 0}, dy[3] = {0, -1, -1};
-    for (int k = 0; k < 3; k++) {
-      int x = mx + dx[k], y = my + dy[k];
-      if (x < 0 || y < 0 || x >= a.mb_w) continue;
-      wait_flag(a.done + y * a.mb_w + x);
-    }
-    __threadfence();
-  }
-  __syncwarp();
+// bS of segment k of edge e in direction d (0 vertical) of macroblock
+// (mx, my): 0 where the edge is not filtered (picture border,
+// disable_deblocking_filter_idc 1, or 2 across a slice border; the 8x8
+// transform's inner edges).
+__device__ int edge_bs(const RecArgs& a, int mx, int my, int d, int e, int k) {
+  const int m = my * a.mb_w + mx;
   const int* r = a.mb + m * 8;
   const int sl = r[1];
-  const int* slc = a.slices + sl * kSliceInts;
-  const int idc = slc[kSDeblockIdc], aoff = slc[kSAlpha], boff = slc[kSBeta];
-  const bool t8 = r[0] & kT8;
-  const int W = a.W, H = a.H, Wc = W / 2, Hc = H / 2;
-  uint8_t* Yp = a.pool + a.cur * a.plane;
-  const bool luma = tid < 16;
-  const int comp = (tid - 16) >> 3, line = luma ? tid : (tid - 16) & 7;
-  uint8_t* plane = luma ? Yp : Yp + W * H + comp * Wc * Hc;
-  const int pw = luma ? W : Wc;
-  if (idc != 1) {
-    for (int d = 0; d < 2; d++) {
-      const int nbm = d == 0 ? (mx > 0 ? m - 1 : -1) : (my > 0 ? m - a.mb_w : -1);
-      const bool edge0 = nbm >= 0 && !(idc == 2 && a.mb[nbm * 8 + 1] != sl);
-      for (int e = 0; e < 4; e++) {
-        bool on = e == 0 ? edge0 : !(t8 && (e & 1));
-        if (!luma && (e & 1)) on = false;
-        if (on) {
-          const int pm = e == 0 ? nbm : m;
-          // The 4x4 cells either side of this line's segment.
-          int seg = luma ? line >> 2 : line >> 1;
-          int cq = d == 0 ? seg * 4 + e : e * 4 + seg;
-          int cp = d == 0 ? seg * 4 + ((e + 3) & 3) : ((e + 3) & 3) * 4 + seg;
-          int bs = bs_of(a, pm, cp, m, cq, e == 0);
-          if (bs > 0) {
-            int qpav = luma ? (a.mb[pm * 8 + 2] + r[2] + 1) >> 1
-                            : (a.mb[pm * 8 + 3 + comp] + r[3 + comp] + 1) >> 1;
-            int ia = clip3(0, 51, qpav + aoff), ib = clip3(0, 51, qpav + boff);
-            int taps = luma ? 4 : 2;
-            int x0, y0, sx, sy;  // the sample q0 and the step across the edge
-            if (d == 0) {
-              x0 = (luma ? mx * 16 : mx * 8) + (luma ? 4 * e : 2 * e);
-              y0 = (luma ? my * 16 : my * 8) + line;
-              sx = 1;
-              sy = 0;
-            } else {
-              x0 = (luma ? mx * 16 : mx * 8) + line;
-              y0 = (luma ? my * 16 : my * 8) + (luma ? 4 * e : 2 * e);
-              sx = 0;
-              sy = 1;
-            }
-            int smp[8];
-            for (int k = 0; k < 2 * taps; k++) {
-              int x = x0 + (k - taps) * sx, y = y0 + (k - taps) * sy;
-              smp[k] = load_cg(plane + y * pw + x);
-            }
-            if (luma)
-              filter_luma(smp, bs, ia, ib);
-            else
-              filter_chroma(smp, bs, ia, ib);
-            for (int k = 0; k < 2 * taps; k++) {
-              int x = x0 + (k - taps) * sx, y = y0 + (k - taps) * sy;
-              plane[y * pw + x] = (uint8_t)smp[k];
-            }
-          }
-        }
-        __syncwarp();
-      }
+  const int idc = a.slices[sl * kSliceInts + kSDeblockIdc];
+  if (idc == 1) return 0;
+  int pm = m;
+  if (e == 0) {
+    pm = d == 0 ? (mx > 0 ? m - 1 : -1) : (my > 0 ? m - a.mb_w : -1);
+    if (pm < 0 || (idc == 2 && a.mb[pm * 8 + 1] != sl)) return 0;
+  } else if ((r[0] & kT8) && (e & 1)) {
+    return 0;
+  }
+  const int cq = d == 0 ? k * 4 + e : e * 4 + k;
+  const int cp = d == 0 ? k * 4 + ((e + 3) & 3) : ((e + 3) & 3) * 4 + k;
+  return bs_of(a, pm, cp, m, cq, e == 0);
+}
+
+// Lane 0 waits until the counter reaches `need` (acquire); every lane
+// gets what it read. A wait that outlasts about ten seconds means a
+// broken order: trap, so the launch fails instead of holding the card.
+__device__ int wait_count(const int* count, int need, int lane) {
+  int v = 0;
+  if (lane == 0) {
+    const long long t0 = clock64();
+    for (;;) {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(count) : "memory");
+      if (v >= need) break;
+      if (clock64() - t0 > 20000000000LL) __trap();
     }
   }
+  __syncwarp();  // orders lane 0's acquire before the other lanes' reads
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// One plane's walk along row y: luma (warp 0) or Cb and Cr (warp 1).
+// Lanes 0-15 filter and fetch the macroblock's own rows; lanes 16-19
+// fetch the top strip's rows. `ring` holds S + N rows of 4N columns a
+// component, `stride` bytes a row.
+template <bool kLuma>
+__device__ void walk(const RecArgs& a, int y, const uint8_t* s_bs, const uint8_t* s_ix,
+                     uint8_t* ring, int lane) {
+  constexpr int N = kLuma ? 16 : 8, S = kLuma ? 4 : 2, stride = kLuma ? kLStride : kCStride;
+  constexpr int ring_bytes = (N + S) * stride;
+  const int mw = a.mb_w, W = a.W, Wc = W >> 1, Hc = a.H >> 1;
+  uint8_t* const Yp = a.pool + a.cur * a.plane;
+  // This lane's component, line, and the line of the top strip it fetches.
+  const int comp = kLuma ? 0 : (lane >> 3) & 1, line = kLuma ? lane & 15 : lane & 7;
+  const int pw = kLuma ? W : Wc;
+  uint8_t* const plane = kLuma ? Yp : Yp + W * a.H + comp * Wc * Hc;
+  const int scomp = kLuma ? 0 : (lane >> 1) & 1, sline = kLuma ? lane & 3 : lane & 1;
+  uint8_t* const splane = kLuma ? Yp : Yp + W * a.H + scomp * Wc * Hc;
+  uint8_t* const rc = ring + comp * ring_bytes;   // this lane's component
+  uint8_t* const rs = ring + scomp * ring_bytes;  // its strip's component
+  auto at = [&](uint8_t* r, int row, int col) { return r + row * stride + (col & (4 * N - 1)); };
+  auto fetch = [&](const uint8_t* p) {
+    if (kLuma) return __ldcg(reinterpret_cast<const uint4*>(p));
+    const uint2 v = __ldcg(reinterpret_cast<const uint2*>(p));
+    return make_uint4(v.x, v.y, 0, 0);
+  };
+  auto put = [&](uint8_t* p, uint4 v) {
+    word(p) = v.x;
+    word(p + 4) = v.y;
+    if (kLuma) {
+      word(p + 8) = v.z;
+      word(p + 12) = v.w;
+    }
+  };
+  // Macroblock x's own rows (lanes 0-15) and its top strip (lanes 16-19).
+  auto fetch_tile = [&](int x) {
+    return lane < 16 ? fetch(plane + (N * y + line) * pw + N * x) : make_uint4(0, 0, 0, 0);
+  };
+  auto put_tile = [&](int x, uint4 v) {
+    if (lane < 16) put(at(rc, S + line, N * x), v);
+  };
+  auto fetch_strip = [&](int x) {
+    return lane >= 16 && lane < 20 ? fetch(splane + (N * y - S + sline) * pw + N * x)
+                                   : make_uint4(0, 0, 0, 0);
+  };
+  auto put_strip = [&](int x, uint4 v) {
+    if (lane >= 16 && lane < 20) put(at(rs, sline, N * x), v);
+  };
+  // Publication x: all of macroblock x - 1 is written back (and V(x) done).
+  auto publish = [&](int x) {
+    if (x >= 2) bar_sync(kBarAck + (x & 1));
+    bar_arrive(kBarPub + (x & 1));
+  };
+
+  // A macroblock's edges in each direction, from its bS: V, H, and H's
+  // top edge (never in row 0). Where a direction has none, its filter
+  // is skipped; a macroblock with no filtered top edge reads nothing of
+  // the row above and need not wait for it.
+  auto edges = [&](int x, int d) {
+    const uint4 b = *reinterpret_cast<const uint4*>(s_bs + x * kBsBytes + 16 * d);
+    return b.x | b.y | b.z | b.w;
+  };
+  auto top = [&](int x) { return *reinterpret_cast<const uint32_t*>(s_bs + x * kBsBytes + 16) != 0; };
+
+  const int* above = a.done + (y > 0 ? y - 1 : 0);
+  int seen = 0;         // the row above's count, as last read
+  bool have = false;    // the step's top strip is in the ring
+  bool dirty = false;   // the previous macroblock's samples changed
+  put_tile(0, fetch_tile(0));
   __syncwarp();
-  if (tid == 0) {
-    __threadfence();
-    atomicExch(a.done + m, 1);
+  for (int x = 0; x < mw; x++) {
+    const bool last = x + 1 == mw;
+    const uint4 next = last ? make_uint4(0, 0, 0, 0) : fetch_tile(x + 1);
+    const uint8_t* bsx = s_bs + x * kBsBytes;
+    const uint8_t* ix = s_ix + x * kIxBytes;
+    const bool v = edges(x, 0) != 0, h = edges(x, 1) != 0, t = top(x);
+    // V: a line is a row, the left neighbour's last 4 (2) samples and
+    // its own.
+    if (v && lane < 16) {
+      constexpr int K = kLuma ? 5 : 3;  // words from column N x - 4
+      int s[4 * K];
+#pragma unroll
+      for (int k = 0; k < K; k++) {
+        const uint32_t w = word(at(rc, S + line, N * x - 4 + 4 * k));
+#pragma unroll
+        for (int j = 0; j < 4; j++) s[4 * k + j] = (w >> (8 * j)) & 255;
+      }
+      if (kLuma) {
+#pragma unroll
+        for (int e = 0; e < 4; e++) {
+          const int bs = bsx[e * 4 + (line >> 2)];
+          const uint8_t* q = ix + (e == 0 ? 0 : 12);
+          if (bs > 0) filter_luma(s + 4 * e, bs, q[0], q[1]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 2; c++) {
+          const int bs = bsx[c * 8 + (line >> 1)];
+          const uint8_t* q = ix + (c == 0 ? 0 : 12) + 2 + 2 * comp;
+          if (bs > 0) filter_chroma(s + 2 + 4 * c, bs, q[0], q[1]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; k++)
+        word(at(rc, S + line, N * x - 4 + 4 * k)) =
+            s[4 * k] | s[4 * k + 1] << 8 | s[4 * k + 2] << 16 | s[4 * k + 3] << 24;
+    }
+    __syncwarp();
+    // The left neighbour is final: its last columns go back where they
+    // changed, and with them all of it is.
+    if (x > 0 && (dirty || v) && lane < 16) {
+      uint8_t* g = plane + (N * y + line) * pw + N * x;
+      if (kLuma)
+        word(g - 4) = word(at(rc, S + line, N * x - 4));
+      else
+        half(g - 2) = half(at(rc, S + line, N * x - 2));
+    }
+    publish(x);
+    // The top strip: (x, y - 1) is final once the row above has
+    // published x + 2.
+    if (t && !have) {
+      if (seen < x + 2) seen = wait_count(above, x + 2, lane);
+      put_strip(x, fetch_strip(x));
+      __syncwarp();
+    }
+    have = false;
+    uint4 strip = make_uint4(0, 0, 0, 0);
+    if (!last && top(x + 1) && seen >= x + 3) {
+      strip = fetch_strip(x + 1);
+      have = true;
+    }
+    // H: a line is a column, the top strip's and its own.
+    if (h && lane < 16) {
+      const int X = N * x + line;
+      int s[S + N];
+#pragma unroll
+      for (int k = 0; k < S + N; k++) s[k] = *at(rc, k, X);
+      if (kLuma) {
+#pragma unroll
+        for (int e = 0; e < 4; e++) {
+          const int bs = bsx[16 + e * 4 + (line >> 2)];
+          const uint8_t* q = ix + (e == 0 ? 6 : 12);
+          if (bs > 0) filter_luma(s + 4 * e, bs, q[0], q[1]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 2; c++) {
+          const int bs = bsx[16 + c * 8 + (line >> 1)];
+          const uint8_t* q = ix + (c == 0 ? 6 : 12) + 2 + 2 * comp;
+          if (bs > 0) filter_chroma(s + 4 * c, bs, q[0], q[1]);
+        }
+      }
+#pragma unroll
+      for (int k = 1; k < S + N; k++) *at(rc, k, X) = (uint8_t)s[k];
+    }
+    __syncwarp();
+    // Write back what changed and no later step of this row changes: its
+    // own first 12 (6) columns, all at the last column, and the top
+    // strip's rows that H may have changed (all but the first).
+    dirty = v || h;
+    if (kLuma) {
+      if (dirty)
+        for (int w = lane; w < 48; w += 32) {
+          const int row = S + w / 3, col = N * x + 4 * (w % 3);
+          word(plane + (N * y - S + row) * pw + col) = word(at(rc, row, col));
+        }
+      if (t && lane < 12) {
+        const int row = 1 + lane / 4, col = N * x + 4 * (lane % 4);
+        word(plane + (N * y - S + row) * pw + col) = word(at(rc, row, col));
+      }
+    } else {
+      uint8_t* g = plane + (N * y + line) * pw + N * x;
+      if (dirty) {
+        if (lane < 16)
+          word(g) = word(at(rc, S + line, N * x));
+        else
+          half(g + 4) = half(at(rc, S + line, N * x + 4));
+      }
+      if (t && lane >= 16 && lane < 20)
+        word(splane + (N * y - 1) * pw + N * x + 4 * sline) =
+            word(at(rs, S - 1, N * x + 4 * sline));
+    }
+    if (last && dirty && lane < 16) {
+      uint8_t* g = plane + (N * y + line) * pw + N * x + N - 4;
+      if (kLuma)
+        word(g) = word(at(rc, S + line, N * x + N - 4));
+      else
+        half(g + 2) = half(at(rc, S + line, N * x + N - 2));
+    }
+    if (!last) {
+      put_tile(x + 1, next);
+      if (have) put_strip(x + 1, strip);
+    }
+    __syncwarp();
+  }
+  publish(mw);
+  bar_sync(kBarAck + ((mw - 1) & 1));
+  bar_sync(kBarAck + (mw & 1));
+}
+
+__global__ void __launch_bounds__(kThreads, 1) h264_deblock_kernel(RecArgs a) {
+  extern __shared__ __align__(16) uint8_t s_edges[];
+  __shared__ uint32_t ring_y[(4 + 16) * kLStride / 4];
+  __shared__ uint32_t ring_c[2 * (2 + 8) * kCStride / 4];
+  __shared__ int s_y;
+  const int tid = threadIdx.x, mw = a.mb_w;
+  if (tid == 0) s_y = atomicAdd(a.ticket, 1);
+  __syncthreads();
+  const int y = s_y;
+  uint8_t* const s_bs = s_edges;
+  uint8_t* const s_ix = s_edges + mw * kBsBytes;
+  for (int i = tid; i < mw * kBsBytes; i += kThreads)
+    s_bs[i] = edge_bs(a, i >> 5, y, (i >> 4) & 1, (i >> 2) & 3, i & 3);
+  for (int i = tid; i < mw * 9; i += kThreads) {
+    const int x = i / 9, kind = (i % 9) / 3, comp = i % 3;
+    const int m = y * mw + x;
+    const int* r = a.mb + m * 8;
+    const int* slc = a.slices + r[1] * kSliceInts;
+    int pm = m;
+    if (kind == 0 && x > 0) pm = m - 1;
+    if (kind == 1 && y > 0) pm = m - mw;
+    const int qpav = (a.mb[pm * 8 + 2 + comp] + r[2 + comp] + 1) >> 1;
+    s_ix[2 * i] = clip3(0, 51, qpav + slc[kSAlpha]);
+    s_ix[2 * i + 1] = clip3(0, 51, qpav + slc[kSBeta]);
+  }
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  if (warp == 0) {
+    walk<true>(a, y, s_bs, s_ix, reinterpret_cast<uint8_t*>(ring_y), lane);
+  } else if (warp == 1) {
+    walk<false>(a, y, s_bs, s_ix, reinterpret_cast<uint8_t*>(ring_c), lane);
+  } else if (warp == 2) {
+    // The publisher: the row's count, once warps 0 and 1 have arrived.
+    for (int x = 0; x <= mw; x++) {
+      bar_sync(kBarPub + (x & 1));
+      if (lane == 0)
+        asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(a.done + y), "r"(x + 1)
+                     : "memory");
+      bar_arrive(kBarAck + (x & 1));
+    }
   }
 }
 
 }  // namespace
 
 extern "C" int cova_h264_deblock(const RecArgs* args, void* stream) {
-  if (args->n_list == 0) return 0;
-  LAUNCH(h264_deblock_kernel, args->n_list, 32, (cudaStream_t)stream, *args);
+  if (args->mb_h == 0) return 0;
+  const int smem = args->mb_w * (kBsBytes + kIxBytes);
+  h264_deblock_kernel<<<args->mb_h, kThreads, smem, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

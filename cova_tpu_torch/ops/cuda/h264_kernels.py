@@ -5,10 +5,11 @@
 Each takes the frame pool (slots x plane bytes, uint8), the slot of the
 picture being rebuilt and its syntax (ops/h264/picture.Picture) and
 writes the slot in place: K8 the inter macroblocks, K9 the intra and
-I_PCM ones in waves, K10 the loop filter over the picture. A CUDA pool
-goes to the kernel, which is built by nvcc at first use and counted in
-`.launches`; a CPU pool goes to the plain version (ops/h264/). There is
-no fallback between the two: a build or launch failure raises.
+I_PCM ones in waves, K10 the loop filter over the picture, a block a
+macroblock row. A CUDA pool goes to the kernel, which is built by nvcc at
+first use and counted in `.launches`; a CPU pool goes to the plain
+version (ops/h264/). There is no fallback between the two: a build or
+launch failure raises.
 
 The kernels read the spec's tables from a header generated from
 ops/h264/tables.py into the build directory.
@@ -81,7 +82,8 @@ def wave_order(mbs, mb_w):
 
 
 def launch_args(pool, slot, pic: Picture, lst, done=None, ticket=None):
-    """The RecArgs of a launch over macroblocks `lst` (int32)."""
+    """The RecArgs of a launch over macroblocks `lst` (int32; None for
+    K10, which takes the picture's rows)."""
     n = pic.mb.shape[0]
     pcm_row = torch.full((n,), -1, dtype=torch.int32, device=pool.device)
     if pic.pcm_mb.numel():
@@ -93,7 +95,7 @@ def launch_args(pool, slot, pic: Picture, lst, done=None, ticket=None):
         t(pool), pool.shape[1], slot, pic.width, pic.height, pic.mb_w, pic.mb_h,
         t(pic.mb), t(pic.cell), t(pic.ipred), t(pic.coef), t(pcm_row), t(pic.pcm),
         t(pic.slices), t(pic.slot_of), t(pic.ls4), t(pic.ls8), pic.poc, t(lst),
-        lst.numel(), t(done), t(ticket))
+        lst.numel() if lst is not None else 0, t(done), t(ticket))
     return a, keep
 
 
@@ -155,11 +157,9 @@ def h264_deblock(pool: torch.Tensor, slot: int, pic: Picture):
     """K10: the loop filter over pool[slot], in place."""
     if pool.device.type == "cpu":
         return deblock.deblock(pool, slot, pic)
-    n = pic.mb.shape[0]
-    lst = wave_order(torch.arange(n, device=pool.device), pic.mb_w).to(torch.int32)
-    done = torch.zeros(n, dtype=torch.int32, device=pool.device)
-    ticket = torch.zeros(1, dtype=torch.int32, device=pool.device)
-    _launch("h264_deblock", pool, slot, pic, lst, done, ticket)
+    # Each row's progress counter, then the row ticket.
+    rows = torch.zeros(pic.mb_h + 1, dtype=torch.int32, device=pool.device)
+    _launch("h264_deblock", pool, slot, pic, None, rows[:-1], rows[-1:])
     h264_deblock.launches += 1
 
 
