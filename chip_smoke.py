@@ -1496,6 +1496,7 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples, max_frames=None):
     import torch
 
     from cova_tpu_torch.pipeline.cova import CovaPipeline
+    from cova_tpu_torch.pipeline.ranges import RangePlan
 
     pipe = CovaPipeline(str(mp4), str(out), cfg, sd, device=device, log=log)
     if device == "cuda":
@@ -1520,7 +1521,8 @@ def _run_pipeline(tag, mp4, out, cfg, sd, device, samples, max_frames=None):
         f"host_mirror {tm.host_mirror:.3f} s, pixel_stage {tm.pixel_stage:.3f} s"
     )
     if max_frames:
-        samples = sum(min(c, max_frames) for _, _, c in pipe._range_bounds())
+        samples = sum(c for _, _, c in RangePlan.build(
+            [st.demux for st in pipe.streams], pipe.cfg, max_frames).bounds)
     if res.num_frames != samples:
         raise AssertionError(f"num_frames {res.num_frames} != {samples} samples")
     if res.dead_tracks <= 0:
@@ -2712,7 +2714,7 @@ def phase13_bench() -> None:
         try:
             r, t = b.stage.num_ranges, b.cfg.video.timestep
             chunk = bench.fresh_chunk(b, r)
-            bench.fill_chunk(b, chunk.numpy(), [0] * r, 0, b.ranges)
+            bench.fill_chunk(b, chunk.numpy(), [0] * r, 0, b.plan)
             got = b.stage.run_chunk_masks(bench.upload(b, chunk)).cpu().numpy()
             ref = CompressedStage(model_cpu, b.cfg, r, "cpu").run_chunk_masks(
                 chunk.clone()).numpy()

@@ -58,13 +58,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
 import pathlib
 import time
 
 import numpy as np
 import torch
+
+from cova_tpu_torch.pipeline.ranges import RangePlan
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SYNTH_RENDER = REPO / "cova_tpu_torch" / "data" / "synth_1800.mp4"
@@ -87,44 +88,9 @@ def bench_cfg(meta: dict):
 
 
 @dataclasses.dataclass
-class Ranges:
-    """GoP-aligned ranges of a stream: (first sample, samples) a range,
-    its windows (samples - T + 1; chunks follow the longest range and a
-    shorter one stops contributing), and its display-order sample
-    indices."""
-
-    bounds: list
-    wmax: list
-    disp: list
-
-    def windows(self, off: int, f: int) -> int:
-        """Real windows of the chunk that starts at window `off`."""
-        return sum(max(0, min(f, wm - off)) for wm in self.wmax)
-
-
-def make_ranges(demux, nr: int, t: int) -> Ranges:
-    """Split `demux`'s GoPs into `nr` contiguous ranges (as
-    CovaPipeline._range_bounds does), padded with empty ones: entropy
-    decode is sequential within a GoP, so a range that straddled GoPs
-    would decode the straddled prefix again."""
-    gops = demux.gops()
-    per_gop = max(1, math.ceil(len(gops) / nr))
-    bounds = []
-    for i in range(0, len(gops), per_gop):
-        g = gops[i : i + per_gop]
-        bounds.append((g[0].first_sample, sum(x.num_samples for x in g)))
-    while len(bounds) < nr:
-        bounds.append((demux.num_samples, 0))
-    bounds = bounds[:nr]
-    disp = [demux.display_order(s0, cnt) if cnt else np.zeros(0, np.int32)
-            for s0, cnt in bounds]
-    return Ranges(bounds, [max(0, c - t + 1) for _, c in bounds], disp)
-
-
-@dataclasses.dataclass
 class Bench:
     """What the passes share: the stream, the configuration, BlobNet on
-    the device, the ranges and the stage at cfg's R."""
+    the device, the range plan and the stage at cfg's R."""
 
     path: str
     demux: object
@@ -132,7 +98,7 @@ class Bench:
     model: torch.nn.Module
     device: torch.device
     threads: int
-    ranges: Ranges
+    plan: RangePlan
     stage: object
 
 
@@ -148,26 +114,17 @@ def fresh_chunk(b: Bench, nr: int) -> torch.Tensor:
     return chunk
 
 
-def fill_chunk(b: Bench, chunk: np.ndarray, prev_n: list, off: int, ranges: Ranges) -> None:
-    """Entropy-decode the chunk that starts at window `off` into `chunk`
-    (a reused buffer), range by range in display order; zero only what
-    the buffer's last use (`prev_n` frames a range, updated here) wrote
-    beyond the new extent."""
-    f, t = b.cfg.compressed.batch_frames, b.cfg.video.timestep
-    c = b.cfg.compressed
-    for ri, (_, cnt) in enumerate(ranges.bounds):
-        count = min(f + t - 1, cnt - off)
-        if count <= 0 or off >= ranges.wmax[ri]:
-            count = 0
-        else:
-            b.demux.entropy_decode_packed16(
-                ranges.disp[ri][off : off + count], with_nnz=c.use_nnz_channel,
-                signed_mv=c.signed_mv, threads=b.threads, out=chunk[ri, :count])
-        if count < prev_n[ri]:
-            chunk[ri, count : prev_n[ri]] = 0
-            if c.signed_mv:
-                chunk[ri, count : prev_n[ri], :, :, 1] = 0x88
-        prev_n[ri] = count
+def fill_chunk(b: Bench, chunk: np.ndarray, prev_n: list, i: int, plan: RangePlan) -> None:
+    """Entropy-decode chunk `i` of `plan` into `chunk` (a reused buffer);
+    zero only what the buffer's last use (`prev_n` frames a range,
+    updated here) wrote beyond the new extent."""
+    counts = plan.decode_chunk(i, [b.demux], chunk, b.threads)
+    for ri, n in enumerate(counts):
+        if n < prev_n[ri]:
+            chunk[ri, n : prev_n[ri]] = 0
+            if plan.signed_mv:
+                chunk[ri, n : prev_n[ri], :, :, 1] = 0x88
+        prev_n[ri] = n
 
 
 def upload(b: Bench, chunk: torch.Tensor) -> torch.Tensor:
@@ -222,8 +179,7 @@ def setup(path, device="cuda") -> Bench:
     demux = Mp4Demuxer(str(path))
     r = cfg.parallel.num_ranges
     b = Bench(str(path), demux, cfg, model, device, min(os.cpu_count() or 8, 16),
-              make_ranges(demux, r, cfg.video.timestep),
-              CompressedStage(model, cfg, r, device))
+              RangePlan.build([demux], cfg), CompressedStage(model, cfg, r, device))
     _warm(b, b.stage)
     return b
 
@@ -236,7 +192,7 @@ def one_pass(b: Bench, on_dead=None) -> tuple:
     from cova_tpu_torch.pipeline.cova import HOST_MAX_BOXES
     from cova_tpu_torch.tracker.host import HostSort, cc_boxes
 
-    cfg, rg, stage = b.cfg, b.ranges, b.stage
+    cfg, plan, stage = b.cfg, b.plan, b.stage
     r, f = stage.num_ranges, cfg.compressed.batch_frames
     mh, mw = b.demux.mb_height, b.demux.mb_width
     start, cpu0 = time.perf_counter(), time.process_time()
@@ -248,7 +204,7 @@ def one_pass(b: Bench, on_dead=None) -> tuple:
     pulls = [_Pull(b, _packed_numel(b, r)) for _ in (0, 1)]
     prev_n = [[0] * r, [0] * r]
 
-    def consume(pull, win0):
+    def consume(pull, ci):
         t0 = time.perf_counter()
         masks = unpack_masks(pull.wait(), stage.masks_shape)
         stages["pull"] += time.perf_counter() - t0
@@ -259,25 +215,24 @@ def one_pass(b: Bench, on_dead=None) -> tuple:
         ltwh = ltwh.reshape(r, f, HOST_MAX_BOXES, 4)
         valid = valid.reshape(r, f, HOST_MAX_BOXES)
         t0 = time.perf_counter()
-        for ri in range(r):
-            nf = min(f, rg.wmax[ri] - win0)
+        for ri, nf in enumerate(plan.chunk_windows(ci)):
             if nf > 0:
-                trackers[ri].update_batch(ltwh[ri, :nf], valid[ri, :nf], float(win0))
+                trackers[ri].update_batch(ltwh[ri, :nf], valid[ri, :nf], float(ci * f))
         stages["sort"] += time.perf_counter() - t0
 
     processed, pending = 0, None
-    for ci, off in enumerate(range(0, max(rg.wmax), f)):
+    for ci in range(plan.n_chunks):
         chunk, pull = bufs[ci & 1], pulls[ci & 1]
         t0 = time.perf_counter()
-        fill_chunk(b, chunk.numpy(), prev_n[ci & 1], off, rg)
+        fill_chunk(b, chunk.numpy(), prev_n[ci & 1], ci, plan)
         stages["decode"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         pull.start(stage.run_chunk_masks(upload(b, chunk)))
         stages["dispatch"] += time.perf_counter() - t0
         if pending is not None:
             consume(*pending)
-        pending = (pull, off)
-        processed += rg.windows(off, f)
+        pending = (pull, ci)
+        processed += sum(plan.chunk_windows(ci))
     if pending is not None:
         consume(*pending)
     for tr in trackers:
@@ -295,16 +250,16 @@ def measure_device_fps(b: Bench, nr: int, reps: int, stage=None) -> tuple:
     warm stage at `nr`; otherwise one is built and warmed."""
     from cova_tpu_torch.pipeline.compressed import CompressedStage
 
-    f = b.cfg.compressed.batch_frames
-    rg = make_ranges(b.demux, nr, b.cfg.video.timestep)
+    plan = RangePlan.build([b.demux], dataclasses.replace(
+        b.cfg, parallel=dataclasses.replace(b.cfg.parallel, num_ranges=nr)))
     if stage is None:
         stage = CompressedStage(b.model, b.cfg, nr, b.device)
         _warm(b, stage)
     chunks = []
-    for off in range(0, max(rg.wmax), f):
+    for ci in range(plan.n_chunks):
         chunk = fresh_chunk(b, nr)
-        fill_chunk(b, chunk.numpy(), [0] * nr, off, rg)
-        chunks.append((chunk, rg.windows(off, f)))
+        fill_chunk(b, chunk.numpy(), [0] * nr, ci, plan)
+        chunks.append((chunk, sum(plan.chunk_windows(ci))))
     pulls = [_Pull(b, _packed_numel(b, nr)) for _ in (0, 1)]
 
     def device_pass():

@@ -39,7 +39,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
 import pathlib
 import statistics
@@ -87,34 +86,21 @@ def profile_cfg(meta: dict, batch_frames: int | None = None):
 
 
 def load_chunk(path, cfg) -> np.ndarray:
-    """The first F+T-1 display-order frames of each of the
-    cfg.parallel.num_ranges GoP ranges of `path`, entropy-decoded into
-    one (R, F+T-1, H, W, 2) wire16 chunk (zero-motion padding past a
-    range's end)."""
+    """The pipeline's first chunk of `path`: the first F+T-1 display-order
+    frames of each of its cfg.parallel.num_ranges GoP ranges,
+    entropy-decoded into one (R, F+T-1, H, W, 2) wire16 chunk
+    (zero-motion padding past a range's end)."""
     from cova_tpu_torch.codec import Mp4Demuxer
+    from cova_tpu_torch.pipeline.ranges import RangePlan
 
-    r = cfg.parallel.num_ranges
-    nf = cfg.compressed.batch_frames + cfg.video.timestep - 1
     demux = Mp4Demuxer(str(path))
     try:
-        gops = demux.gops()
-        per_gop = max(1, math.ceil(len(gops) / r))
-        bounds = []
-        for i in range(0, len(gops), per_gop):
-            g = gops[i : i + per_gop]
-            bounds.append((g[0].first_sample, sum(x.num_samples for x in g)))
-        chunk = np.zeros((r, nf, demux.mb_height, demux.mb_width, 2), np.uint8)
+        plan = RangePlan.build([demux], cfg)
+        chunk = np.zeros((cfg.parallel.num_ranges, plan.nf_chunk, demux.mb_height,
+                          demux.mb_width, 2), np.uint8)
         if cfg.compressed.signed_mv:
             chunk[..., 1] = 0x88
-        for ri, (s0, cnt) in enumerate(bounds[:r]):
-            count = min(nf, cnt)
-            demux.entropy_decode_packed16(
-                demux.display_order(s0, count),
-                with_nnz=cfg.compressed.use_nnz_channel,
-                signed_mv=cfg.compressed.signed_mv,
-                threads=min(os.cpu_count() or 8, 16),
-                out=chunk[ri, :count],
-            )
+        plan.decode_chunk(0, [demux], chunk, min(os.cpu_count() or 8, 16))
     finally:
         demux.close()
     return chunk

@@ -22,11 +22,11 @@ selector settings). This harness exploits two invariances:
     pixel decode is needed, so the harness also runs on streams outside
     the pixel decoder's scope.
 
-The host replay mirrors CovaPipeline._run's host-tracking path line for
-line (same chunk interleaving, same pts domains, same aggregator
-delivery order), so its CSVs equal a full pipeline run's on the same
-probabilities' masks (tests/test_torch_sweep.py holds them byte for
-byte).
+The host replay takes its ranges, container clock and per-range tracker
+and selector from the pipeline's own range plan (pipeline/ranges.py),
+in CovaPipeline._run's chunk interleaving, so its CSVs equal a full
+pipeline run's on the same probabilities' masks (tests/test_torch_sweep.py
+holds them byte for byte against the JAX package's replay).
 
 The defaults are the committed synth render (cova_tpu_torch/data/
 synth_1800.mp4, examples/make_synth.py v6, seed 11), its ground truth
@@ -39,10 +39,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import hashlib
 import itertools
 import json
-import math
 import os
 import pathlib
 import tempfile
@@ -82,6 +82,8 @@ class SweepContext:
     ):
         from cova_tpu_torch.aggregator import BoxRec
         from cova_tpu_torch.codec import Mp4Demuxer
+        from cova_tpu_torch.config import CovaConfig, ParallelConfig, VideoConfig
+        from cova_tpu_torch.pipeline.ranges import RangePlan
         from cova_tpu_torch.query.metrics import load_boxes_csv
 
         self.video = str(video)
@@ -98,58 +100,18 @@ class SweepContext:
             demux.sample(demux.num_samples - 1).pts / tsc + 1.0 / fps
         )
 
-        # Range geometry — CovaPipeline._range_bounds + _run setup.
-        gops = demux.gops()
-        per = max(1, math.ceil(len(gops) / num_ranges))
-        bounds = []
-        for i in range(0, len(gops), per):
-            chunk = gops[i : i + per]
-            bounds.append(
-                (chunk[0].first_sample, sum(g.num_samples for g in chunk))
-            )
-        while len(bounds) < num_ranges:
-            bounds.append((demux.num_samples, 0))
-        self.bounds = bounds[:num_ranges]
-        if max_frames:
-            # Same per-range clamp as CovaPipeline.run(max_frames=...).
-            self.bounds = [(s, min(c, max_frames)) for s, c in self.bounds]
-
-        all_pts = np.sort(
-            np.array(
-                [demux.sample(i).pts for i in range(demux.num_samples)],
-                dtype=np.int64,
-            )
-        )
-        pts_sec = all_pts / tsc
-        if len(pts_sec) == 0:
-            pts_sec = np.zeros(1)
-        self.pts_sec = np.concatenate(
-            [pts_sec, pts_sec[-1] + np.arange(1, len(self.bounds) + 2) / fps]
-        )
-        self.range_starts = [float(self.pts_sec[s]) for s, _ in self.bounds]
-
-        self.disp = [
-            demux.display_order(s, c) if c else np.zeros(0, np.int32)
-            for s, c in self.bounds
-        ]
-        self.pos_of = []
-        for ri, (s_, c_) in enumerate(self.bounds):
-            m = {}
-            for rel, si in enumerate(self.disp[ri]):
-                m[int(si)] = s_ + rel
-            self.pos_of.append(m)
-
-        # Encoded-frame info for the selectors (decode order) and the
-        # sample -> presentation-seconds map for the GT lookup.
-        self.frame_info = []  # per range: [(sample_index, rank_pts, keyframe)]
-        self.sample_sec = {}
-        for ri, (start, count) in enumerate(self.bounds):
-            rows = []
-            for si in range(start, start + count):
-                info = demux.sample(si)
-                rows.append((si, self.pos_of[ri][si] / fps, info.keyframe))
-                self.sample_sec[si] = info.pts / tsc
-            self.frame_info.append(rows)
+        # Range geometry: the pipeline's own plan (pipeline/ranges.py).
+        self.plan = RangePlan.build([demux], CovaConfig(
+            video=VideoConfig(timestep=timestep, fps=fps),
+            parallel=ParallelConfig(num_ranges=num_ranges)), max_frames)
+        self.bounds = [(s, c) for _, s, c in self.plan.bounds]
+        self.pts_sec = self.plan.pts_sec[0]
+        self.range_starts = self.plan.range_starts
+        self.frame_info = self.plan.frame_info
+        # The sample -> presentation-seconds map for the GT lookup.
+        self.sample_sec = {si: demux.sample(si).pts / tsc
+                           for start, count in self.bounds
+                           for si in range(start, start + count)}
 
         # Decode all metadata once (display order per range, 4 channels —
         # 3-channel consumers slice; the packed bytes are identical).
@@ -193,7 +155,7 @@ class SweepContext:
             out = np.zeros((count, self.mb_h, self.mb_w, 4), np.uint8)
             if count:
                 demux.entropy_decode_packed(
-                    self.disp[ri], channels=4, threads=self._decode_threads,
+                    self.plan.disp[ri], channels=4, threads=self._decode_threads,
                     out=out, signed_mv=signed_mv,
                 )
             out_all.append(out)
@@ -283,37 +245,27 @@ class SweepContext:
         )
 
         metadata = self.metadata_for(signed_mv)
-        t = self.timestep
         f = batch_frames
-        wmax = [max(0, c - t + 1) for _, c in self.bounds]
-        longest_w = max(wmax, default=0)
-        n_chunks = -(-longest_w // f) if longest_w > 0 else 0
-        nf_chunk = f + t - 1
+        plan = dataclasses.replace(self.plan, f=f)
         out = [
-            np.zeros((w, self.mb_h, self.mb_w), np.float32) for w in wmax
+            np.zeros((w, self.mb_h, self.mb_w), np.float32) for w in plan.windows
         ]
-        for chunk_i in range(n_chunks):
-            win0 = chunk_i * f
-            off = win0
+        for chunk_i in range(plan.n_chunks):
             meta_chunk = np.zeros(
-                (self.num_ranges, nf_chunk, self.mb_h, self.mb_w, nch),
+                (self.num_ranges, plan.nf_chunk, self.mb_h, self.mb_w, nch),
                 np.uint8,
             )
             if signed_mv:
                 meta_chunk[..., 1:3] = 128  # offset-128 zero motion
-            live = []
-            for ri, (start, count) in enumerate(self.bounds):
-                n = min(nf_chunk, count - off)
-                if win0 >= wmax[ri] or n <= 0:
-                    continue
+            off, frames = plan.chunk_frames(chunk_i)
+            for ri, n in enumerate(frames):
                 meta_chunk[ri, :n] = metadata[ri][off : off + n, :, :, :nch]
-                live.append(ri)
             probs = compressed_probs_step(
                 model, cfg, torch.from_numpy(meta_chunk).to(device)
             ).cpu().numpy().reshape(self.num_ranges, f, self.mb_h, self.mb_w)
-            for ri in live:
-                k = min(f, wmax[ri] - win0)
-                out[ri][win0 : win0 + k] = probs[ri, :k]
+            # Stride 1: the chunk's first window is its first frame.
+            for ri, k in enumerate(plan.chunk_windows(chunk_i)):
+                out[ri][off : off + k] = probs[ri, :k]
         if cache_file is not None:
             cache_file.parent.mkdir(parents=True, exist_ok=True)
             np.savez(cache_file, **{f"r{i}": a for i, a in enumerate(out)})
@@ -333,123 +285,43 @@ class SweepContext:
         from cova_tpu_torch.aggregator import Associator
         from cova_tpu_torch.query.datasets import DATASETS
         from cova_tpu_torch.query.metrics import load_cova, parse_query
-        from cova_tpu_torch.scheduler import FrameSelector
         from cova_tpu_torch.tracker.host import HostSort, cc_boxes
 
-        t = cfg.video.timestep
-        g = cfg.compressed.gamma
-        f = cfg.compressed.batch_frames
-        fps = cfg.video.fps
-        bounds = self.bounds
-        pts_sec = self.pts_sec
-
+        plan = dataclasses.replace(self.plan, t=cfg.video.timestep,
+                                   gamma=cfg.compressed.gamma, f=cfg.compressed.batch_frames)
         tmp = None
         if out_dir is None:
             tmp = tempfile.TemporaryDirectory()
             out_dir = tmp.name
         agg = Associator(out_dir, cfg.aggregator)
-        agg.set_ranges(self.range_starts)
-        dead_count = [0]
-        trackers_by_start = {}
-
-        def on_dead_factory(range_start, sample_start):
-            def cb(rec):
-                dead_count[0] += 1
-                ht = trackers_by_start[range_start]
-                oldest = ht.oldest
-
-                def sec(frame_idx):
-                    return float(
-                        pts_sec[
-                            min(
-                                sample_start + int(round(frame_idx)),
-                                len(pts_sec) - 1,
-                            )
-                        ]
-                    )
-
-                oldest_s = sec(oldest) if math.isfinite(oldest) else 1e18
-                rec = dataclasses.replace(
-                    rec,
-                    start_ts=sec(rec.start_ts),
-                    end_ts=sec(rec.end_ts),
-                    history=[(sec(fi), box) for fi, box in rec.history],
-                )
-                agg.submit_track(range_start, oldest_s, rec)
-
-            return cb
-
-        pix_jobs = [[] for _ in bounds]
-        trackers, selectors = [], []
-        for ri, (start, count) in enumerate(bounds):
-            rs = self.range_starts[ri]
-            ht = HostSort(cfg.sort, on_dead=on_dead_factory(rs, start))
-            trackers_by_start[rs] = ht
-            trackers.append(ht)
-
-            def mk_seen(ht=ht, start=start):
-                return lambda pts: ht.mark_seen(round(pts * fps) - start)
-
-            def mk_emit(ri=ri):
-                return lambda frames: pix_jobs[ri].extend(frames)
-
-            selectors.append(
-                FrameSelector(
-                    cfg.selector,
-                    cfg.sort,
-                    fps=fps,
-                    mark_seen=mk_seen(),
-                    emit=mk_emit(),
-                )
-            )
-        for ri in range(len(bounds)):
-            for si, rank_pts, key in self.frame_info[ri]:
-                selectors[ri].push_frame(si, rank_pts, key)
+        hosts = plan.hosts(cfg, functools.partial(HostSort, cfg.sort), [agg])
 
         # Gamma-selected masks + CC once per range (batched native call).
-        wmax, dets_per_range = [], []
+        dets_per_range = []
         thr = cfg.compressed.mask_threshold
-        for ri, (start, count) in enumerate(bounds):
-            w = max(0, (count - t) // g + 1) if count >= t else 0
-            wmax.append(w)
+        for ri, w in enumerate(plan.windows):
             if w == 0:
                 dets_per_range.append(None)
                 continue
             masks = (
-                probs[ri][np.arange(w) * g] > thr
+                probs[ri][np.arange(w) * plan.gamma] > thr
             ).astype(np.uint8)
             ltwh, _, valid = cc_boxes(masks, cfg.compressed.cc_threshold, 16)
             dets_per_range.append((ltwh, valid))
 
-        longest_w = max(wmax, default=0)
-        n_chunks = -(-longest_w // f) if longest_w > 0 else 0
-        for chunk_i in range(n_chunks):
-            win0 = chunk_i * f
-            for ri, (start, count) in enumerate(bounds):
-                if win0 >= wmax[ri]:
-                    continue
-                sel, hs = selectors[ri], trackers[ri]
+        for chunk_i in range(plan.n_chunks):
+            for ri, k, frame_idx in plan.live_windows(chunk_i):
                 ltwh, valid = dets_per_range[ri]
-                for k in range(f):
-                    if win0 + k >= wmax[ri]:
-                        break
-                    frame_idx = (win0 + k) * g + t - 1
-                    pts = (start + frame_idx) / fps
-                    dets = ltwh[win0 + k][valid[win0 + k]]
-                    min_required_frame = hs.update(dets, float(frame_idx))
-                    min_required = (
-                        None
-                        if min_required_frame is None
-                        else (start + min_required_frame) / fps
-                    )
-                    sel.on_mask_frame(pts, min_required)
+                j = chunk_i * plan.f + k
+                h = hosts[ri]
+                h.feed(frame_idx, h.tracker.update(ltwh[j][valid[j]], float(frame_idx)))
 
-        for sel, ht in zip(selectors, trackers):
-            sel.finish()
-            ht.finalize()
+        for h in hosts:
+            h.finish()
 
         # Pixel stage -> GT-lookup detections (display order per range,
         # droppable dependency frames discarded like _run_pixel_stage).
+        pix_jobs = [h.jobs for h in hosts]
         self._last_pix_jobs = pix_jobs  # debugging/inspection hook
         dets = []
         n_inference_frames = 0
@@ -465,8 +337,8 @@ class SweepContext:
             agg.update_dnn(dets)
         agg.terminate()
 
-        counts = [s.counts for s in selectors]
-        total = sum(c for _, c in bounds)
+        counts = [h.selector.counts for h in hosts]
+        total = sum(c for _, c in self.bounds)
         dropped = sum(c.dropped for c in counts)
         dep = sum(c.decoded_dependency for c in counts)
         inf = sum(c.decoded_inference for c in counts)
@@ -493,12 +365,12 @@ class SweepContext:
             "decode_filter_rate": round(1.0 - (dep + inf) / max(total, 1), 4),
             "inference_filter_rate": round(1.0 - inf / max(total, 1), 4),
             "frames": total,
-            "dead_tracks": dead_count[0],
+            "dead_tracks": sum(h.dead for h in hosts),
             "inference_frames": n_inference_frames,
             "dropped": dropped,
         }
-        for ht in trackers:
-            ht.close()
+        for h in hosts:
+            h.tracker.close()
         if tmp is not None:
             tmp.cleanup()
         return report

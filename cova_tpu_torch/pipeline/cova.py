@@ -6,9 +6,11 @@ frame selector, the selective pixel decoder and the in-process
 aggregator into one pipeline. Data flow per chunk of F windows (default
 cfg.compressed.host_tracking=True):
 
-  host   entropy decode (C++)                 -> (R, F+T-1, H, W, 2) u8
+  host   entropy decode (C++) of the run's GoP-aligned ranges
+         (pipeline/ranges.py's RangePlan)     -> (R, F+T-1, H, W, 2) u8
   device metapreprocess+BlobNet+mask          -> flat bit-packed u8 masks
   host   native CC + SORT (cctrack.cc), FrameSelector schedules decodes
+         (one ranges.RangeHost a range)
   host   selective pixel decode: syntax on the host, the picture on the
   device   pipeline's device (codec/pixrec.py, kernels K8-K10 on CUDA);
          droppable frames discarded
@@ -29,7 +31,7 @@ MBAFF pictures, other chroma formats or bit depths, ...).
 from __future__ import annotations
 
 import dataclasses
-import math
+import functools
 import threading
 import time
 import types
@@ -50,7 +52,8 @@ from cova_tpu_torch.pipeline.compressed import (
     unpack_masks,
     unpack_outputs_np,
 )
-from cova_tpu_torch.scheduler import FrameSelector, HostTracker
+from cova_tpu_torch.pipeline.ranges import RangePlan
+from cova_tpu_torch.scheduler import HostTracker
 from cova_tpu_torch.tracker.host import HostSort, cc_boxes
 
 # Box capacity per frame of the host CC (the device path keeps
@@ -219,26 +222,6 @@ class CovaPipeline:
         """streams: list of (input_path, output_dir, detector)."""
         return cls(None, None, cfg, variables, None, log, device, _streams=streams)
 
-    def _range_bounds(self):
-        """Split each stream's GoPs into num_ranges contiguous ranges, so
-        each range is one coherent timeline. Returns (stream_idx, start,
-        count) triples, num_ranges per stream."""
-        r = self.cfg.parallel.num_ranges
-        bounds = []
-        for sidx, s in enumerate(self.streams):
-            gops = s.demux.gops()
-            per = max(1, math.ceil(len(gops) / r))
-            sb = []
-            for i in range(0, len(gops), per):
-                chunk = gops[i : i + per]
-                first = chunk[0].first_sample
-                count = sum(g.num_samples for g in chunk)
-                sb.append((sidx, first, count))
-            while len(sb) < r:
-                sb.append((sidx, s.demux.num_samples, 0))
-            bounds.extend(sb[:r])
-        return bounds
-
     def warmup(self) -> None:
         """Run the device stage once on a zeroed chunk (for the device
         SORT with nwin = 0, so the tracker state is untouched), so a
@@ -270,170 +253,28 @@ class CovaPipeline:
         cfg = self.cfg
         t = cfg.video.timestep
         f = cfg.compressed.batch_frames
-        fps = cfg.video.fps
+        last = cfg.last or "full"
+        host_tracking = cfg.compressed.host_tracking
+        demuxers = [s.demux for s in self.streams]
         with trace.span("cova.prepare"):
-            last = cfg.last or "full"
             if last == "full":
                 self._require_pixel_decoder()
-
-            bounds = self._range_bounds()
-            if max_frames:
-                bounds = [(sx, s, min(c, max_frames)) for sx, s, c in bounds]
-            # Absolute display rank -> presentation seconds, per stream. The
-            # aggregator associates oracle detections with track boxes by
-            # EXACT timestamp equality, and detections carry container pts,
-            # so every timestamp that reaches the aggregator comes from the
-            # container clock, not from rank/fps. The selector/tracker keep
-            # working in the rank/fps domain internally.
-            pts_sec_s = []
-            for s in self.streams:
-                d = s.demux
-                all_pts = np.sort(
-                    np.array(
-                        [d.sample(i).pts for i in range(d.num_samples)],
-                        dtype=np.int64,
-                    )
-                )
-                ps = all_pts / float(d.timescale)
-                if len(ps) == 0:
-                    ps = np.zeros(1)
-                # Extrapolate past EOS for empty-range placeholders.
-                ps = np.concatenate([ps, ps[-1] + np.arange(1, len(bounds) + 2) / fps])
-                pts_sec_s.append(ps)
-            range_starts = [float(pts_sec_s[sx][s]) for sx, s, _ in bounds]
-            for sidx, s in enumerate(self.streams):
-                s.aggregator.set_ranges(
-                    [rs for rs, (sx, _, _) in zip(range_starts, bounds) if sx == sidx]
-                )
-            # Display-order sample indices per range (B-frame reordering):
-            # the temporal stack must see frames in presentation order, while
-            # the frame selector consumes frames in decode order with their
-            # display-position pts.
-            disp = [
-                self.streams[sx].demux.display_order(s, c) if c else np.zeros(0, np.int32)
-                for sx, s, c in bounds
-            ]
-            # display position (absolute frame rank) per sample index
-            pos_of = []
-            for ri, (_, s_, _) in enumerate(bounds):
-                pos_of.append({int(si): s_ + rel for rel, si in enumerate(disp[ri])})
-
-            dead_count = [0]
-
-            def on_dead_factory(range_start, sample_start, stream):
-                # The trackers work in range-relative frame indices; convert
-                # to absolute seconds at the aggregator boundary. `box` is
-                # filled with the tracker right after construction.
-                box = {}
-                pts_sec = pts_sec_s[stream]
-                agg = self.streams[stream].aggregator
-
-                def cb(rec):
-                    dead_count[0] += 1
-                    oldest = box["ht"].oldest
-
-                    def sec(frame_idx):
-                        return float(
-                            pts_sec[min(sample_start + int(round(frame_idx)),
-                                        len(pts_sec) - 1)]
-                        )
-
-                    oldest_s = sec(oldest) if math.isfinite(oldest) else 1e18
-                    rec = dataclasses.replace(
-                        rec,
-                        start_ts=sec(rec.start_ts),
-                        end_ts=sec(rec.end_ts),
-                        history=[(sec(fi), box_) for fi, box_ in rec.history],
-                    )
-                    agg.submit_track(range_start, oldest_s, rec)
-
-                return cb, box
-
-            selectors = []
-            trackers = []
-            # Scheduled decodes, grouped by range so the pixel stage can run
-            # one independent decoder per range.
-            pix_jobs: list[list] = [[] for _ in bounds]
-
-            def emit_factory(selector_idx):
-                def emit(frames):
-                    pix_jobs[selector_idx].extend(frames)
-
-                return emit
-
-            host_tracking = cfg.compressed.host_tracking
-            for ri, (sx, start, _) in enumerate(bounds):
-                cb, cb_box = on_dead_factory(range_starts[ri], start, sx)
-                # One native tracker per range and run (its C state is freed
-                # when the object goes).
-                if host_tracking:
-                    ht = HostSort(cfg.sort, on_dead=cb)
-                else:
-                    ht = HostTracker(on_dead=cb)
-                cb_box["ht"] = ht
-                trackers.append(ht)
-
-                def mk_seen(ht=ht, start=start):
-                    # selector pts (seconds) -> range-relative frame index
-                    return lambda pts: ht.mark_seen(round(pts * fps) - start)
-
-                selectors.append(
-                    FrameSelector(
-                        cfg.selector,
-                        cfg.sort,
-                        fps=fps,
-                        mark_seen=mk_seen(),
-                        emit=emit_factory(ri),
-                    )
-                )
-
-            # Pre-feed the selectors with every encoded frame in decode order.
-            for ri, (sx, start, count) in enumerate(bounds):
-                sel = selectors[ri]
-                d = self.streams[sx].demux
-                for si in range(start, start + count):
-                    sel.push_frame(si, pos_of[ri][si] / fps, d.sample(si).keyframe)
+            plan = RangePlan.build(demuxers, cfg, max_frames)
+            # One native tracker per range and run (its C state is freed
+            # when the object goes).
+            make_tracker = functools.partial(HostSort, cfg.sort) if host_tracking else HostTracker
+            hosts = plan.hosts(cfg, make_tracker, [s.aggregator for s in self.streams])
 
         start_time = time.perf_counter()
-        # Window accounting: window j of a range covers source frames
-        # [j*gamma, j*gamma + t) and is attributed to its NEWEST frame
-        # j*gamma + t - 1. Chunk count follows the longest range; shorter
-        # ranges stop contributing (their slots process zero-filled
-        # metadata, which the host mirror skips).
-        g = cfg.compressed.gamma
-        wmax = [max(0, (c - t) // g + 1) for _, _, c in bounds]
-        longest_w = max(wmax, default=0)
-        n_chunks = -(-longest_w // f) if longest_w > 0 else 0
-        self.num_chunks = n_chunks
-        nf_chunk = (f - 1) * g + t  # source frames fed per chunk
-        total_frames = sum(c for _, _, c in bounds)
-
+        self.num_chunks = plan.n_chunks
         threads = cfg.parallel.decode_threads
         mh, mw = self.demux.mb_height, self.demux.mb_width
 
-        def live_windows(win0, skipped):
-            """(range, window of the chunk, range-relative display index
-            of the window's newest frame, the frame its mask describes)
-            for every real window of a chunk."""
-            for ri in range(len(bounds)):
-                if skipped[ri]:
-                    continue
-                for k in range(min(f, wmax[ri] - win0)):
-                    yield ri, k, (win0 + k) * g + t - 1
+        def step(ri, frame_idx, min_required_frame):
+            if last != "track":
+                hosts[ri].feed(frame_idx, min_required_frame)
 
-        def select(ri, frame_idx, min_required_frame):
-            """Feed the window's mask frame to the range's selector, with
-            the tracker's min_required frame (None when nothing died)."""
-            if last == "track":
-                return
-            start = bounds[ri][1]
-            # The selector works in the rank/fps domain.
-            min_required = (
-                None if min_required_frame is None else (start + min_required_frame) / fps
-            )
-            selectors[ri].on_mask_frame((start + frame_idx) / fps, min_required)
-
-        def host_track(pulled, win0, skipped):
+        def host_track(pulled, chunk_i):
             """host_tracking mode: the chunk's bit-packed masks through
             native CC + SORT (csrc/cctrack.cc) per range and window, and
             the selector fed from them."""
@@ -450,9 +291,9 @@ class CovaPipeline:
             ltwh = ltwh.reshape(r_, f_, HOST_MAX_BOXES, 4)
             valid = valid.reshape(r_, f_, HOST_MAX_BOXES)
             with trace.span("cova.mirror.track"):
-                for ri, k, frame_idx in live_windows(win0, skipped):
+                for ri, k, frame_idx in plan.live_windows(chunk_i):
                     dets = ltwh[ri, k][valid[ri, k]]
-                    select(ri, frame_idx, trackers[ri].update(dets, float(frame_idx)))
+                    step(ri, frame_idx, hosts[ri].tracker.update(dets, float(frame_idx)))
 
         names = (
             "track_ltwh", "track_id", "track_id_post", "exists",
@@ -460,18 +301,18 @@ class CovaPipeline:
             "death_last_match", "death_tsu", "death_active",
         )
 
-        def host_mirror(pulled, win0, skipped):
+        def host_mirror(pulled, chunk_i):
             """Consume one chunk's packed SortOutputs: HostTracker
             histories/deaths + FrameSelector scheduling per window."""
             with trace.span("cova.mirror.wait"):
                 packed = pulled.numpy()
             with trace.span("cova.mirror.track"):
                 out_np = unpack_outputs_np(packed, self.stage.packed_shape)
-                for ri, k, frame_idx in live_windows(win0, skipped):
+                for ri, k, frame_idx in plan.live_windows(chunk_i):
                     row = types.SimpleNamespace(
                         **{n: getattr(out_np, n)[ri, k] for n in names}
                     )
-                    select(ri, frame_idx, trackers[ri].update(float(frame_idx), row))
+                    step(ri, frame_idx, hosts[ri].tracker.update(float(frame_idx), row))
 
         mirror = host_track if host_tracking else host_mirror
         # Software-pipelined chunk loop: while chunk i's outputs cross to
@@ -485,37 +326,14 @@ class CovaPipeline:
                 mirror(*pending)
             timers.host_mirror += sp.seconds
 
-        pending_mirror = None  # (_HostCopy, win0, skipped) awaiting mirror
-        for chunk_i in range(n_chunks):
-            win0 = chunk_i * f
-            off = win0 * g  # first source frame of the chunk
+        pending_mirror = None  # (_HostCopy, chunk index) awaiting mirror
+        for chunk_i in range(plan.n_chunks):
             with trace.timed("cova.entdec", process=True) as dec:
-                meta_chunk = np.zeros((self.num_ranges, nf_chunk, mh, mw, 2), np.uint8)
+                meta_chunk = np.zeros((self.num_ranges, plan.nf_chunk, mh, mw, 2), np.uint8)
                 if cfg.compressed.signed_mv:
                     # zero motion (mv_x=mv_y=8 -> offset 128) in padding
                     meta_chunk[..., 1] = 0x88
-                skipped = []
-                for ri, (sx, start, count) in enumerate(bounds):
-                    n = min(nf_chunk, count - off)
-                    if win0 >= wmax[ri] or n <= 0:
-                        skipped.append(True)
-                        continue
-                    demux = self.streams[sx].demux
-                    indices = disp[ri][off : off + n]
-                    with trace.span("cova.entdec.range") as sp:
-                        demux.entropy_decode_packed16(
-                            indices,
-                            with_nnz=cfg.compressed.use_nnz_channel,
-                            signed_mv=cfg.compressed.signed_mv,
-                            threads=threads,
-                            out=meta_chunk[ri, :n],
-                        )
-                        if trace.enabled():
-                            firsts = [gop.first_sample for gop in demux.gops()]
-                            sp.set(frames=int(n), gops=int(np.unique(
-                                np.searchsorted(firsts, indices, side="right")).size))
-                    trace.count("entdec.frames", int(n))
-                    skipped.append(False)
+                plan.decode_chunk(chunk_i, demuxers, meta_chunk, threads)
             timers.entropy_decode += dec.seconds
             if last == "entdec":
                 continue
@@ -524,8 +342,9 @@ class CovaPipeline:
                 if host_tracking:
                     out = self.stage.run_chunk_masks(meta_chunk)
                 else:
+                    off = chunk_i * f * cfg.compressed.gamma
                     ts0 = np.full(self.num_ranges, off + t - 1, np.int32)
-                    nwin = np.array([max(0, min(f, wm - win0)) for wm in wmax], np.int32)
+                    nwin = np.array(plan.chunk_windows(chunk_i), np.int32)
                     out, _, _ = self.stage.run_chunk(meta_chunk, ts0, nwin)
             timers.device_dispatch += dev.seconds
             trace.count("masks.chunks")
@@ -535,24 +354,24 @@ class CovaPipeline:
 
             if pending_mirror is not None:
                 run_mirror(pending_mirror)
-            pending_mirror = (pulled, win0, skipped)
+            pending_mirror = (pulled, chunk_i)
         if pending_mirror is not None:
             run_mirror(pending_mirror)
 
         # EOS: flush selectors + trackers, then decode scheduled frames.
         with trace.span("cova.finish"):
-            for sel, ht in zip(selectors, trackers):
-                sel.finish()
+            for h in hosts:
                 if host_tracking:
-                    ht.finalize()
+                    h.finish()
                 else:
-                    ht.finalize(cfg.sort.min_hits)
+                    h.finish(cfg.sort.min_hits)
 
+        pix_jobs = [h.jobs for h in hosts]
         pixel_frames = 0
         if last == "full" and any(pix_jobs):
             self.log(f"pixel stage: {sum(map(len, pix_jobs))} frames scheduled")
             with trace.timed("cova.pixel_stage", process=True) as pix:
-                pixel_frames = self._run_pixel_stage(pix_jobs, [sx for sx, _, _ in bounds],
+                pixel_frames = self._run_pixel_stage(pix_jobs, [sx for sx, _, _ in plan.bounds],
                                                      timers)
             timers.pixel_stage += pix.seconds
 
@@ -561,14 +380,14 @@ class CovaPipeline:
                 s.aggregator.terminate()
         elapsed = time.perf_counter() - start_time
 
-        counts = [s.counts for s in selectors]
+        counts = [h.selector.counts for h in hosts]
         return CovaResult(
-            num_frames=total_frames,
+            num_frames=sum(c for _, _, c in plan.bounds),
             elapsed_seconds=elapsed,
             dropped=sum(c.dropped for c in counts),
             decoded_dependency=sum(c.decoded_dependency for c in counts),
             decoded_inference=sum(c.decoded_inference for c in counts),
-            dead_tracks=dead_count[0],
+            dead_tracks=sum(h.dead for h in hosts),
             pixel_frames=pixel_frames,
             timers=timers,
         )
@@ -590,22 +409,25 @@ class CovaPipeline:
         import concurrent.futures
 
         # Prefetch bitstream payloads serially: the demuxer's FILE* is
-        # seek-position stateful, so only the libavcodec work is fanned
-        # out to threads.
+        # seek-position stateful, so only the decoding (the port's own
+        # pixel decoder: syntax on the host, kernels K8-K10 on the card)
+        # is fanned out to threads.
         with trace.span("cova.pixdec.prefetch"):
             prefetched = []
             for ri, jobs in enumerate(jobs_per_range):
                 demux = self.streams[stream_of_range[ri]].demux
                 ordered = sorted(jobs, key=lambda x: x.sample_index)
                 drop = {fr.sample_index: fr.droppable for fr in ordered}
-                # PAFF: one sample = one FIELD; libavcodec weaves the
-                # complementary pair (adjacent samples, opposite parity)
-                # into ONE output frame carrying the FIRST field's pts.
-                # Decode pairs atomically: pull in the complement of every
-                # scheduled field, and keep the woven frame iff EITHER
-                # field was scheduled non-droppable. field_parity() is 0
-                # for every progressive/MBAFF sample (frame pictures), so
-                # this is a no-op off PAFF streams.
+                # PAFF: one sample = one FIELD; a decoder of field
+                # pictures weaves the complementary pair (adjacent
+                # samples, opposite parity) into ONE output frame carrying
+                # the FIRST field's pts. Decode pairs atomically: pull in
+                # the complement of every scheduled field, and keep the
+                # woven frame iff EITHER field was scheduled
+                # non-droppable. field_parity() is 0 for every
+                # progressive/MBAFF sample (frame pictures), so this is a
+                # no-op off PAFF streams, which the port's own decoder
+                # refuses before the run starts (_require_pixel_decoder).
                 for si in sorted(drop):
                     p = demux.field_parity(si)
                     if p == 0:

@@ -1,10 +1,10 @@
 """The port's headline bench (`cova_tpu_torch/bench.py`) against the JAX
 package's bench.py on the CPU.
 
-* The ranges and every wire16 chunk the port's `fill_chunk` writes into
-  its reused buffers equal chunks decoded by the JAX package's
-  `Mp4Demuxer` into fresh ones, on both committed renders at the
-  production R=8, F=128.
+* The range plan's ranges (pipeline/ranges.py) and every wire16 chunk
+  the port's `fill_chunk` writes into its reused buffers equal chunks
+  decoded by the JAX package's `Mp4Demuxer` into fresh ones, on both
+  committed renders at the production R=8, F=128.
 * At a cut configuration (R=2, F=16) on the heads of the 720p render's
   first two GoPs: the packed masks of every chunk equal the JAX
   `CompressedStage.run_chunk_masks` bytes, and a `one_pass` retires the
@@ -36,6 +36,7 @@ from cova_tpu.utils.mp4loop import write_mp4
 from cova_tpu_torch import bench
 from cova_tpu_torch.config import ParallelConfig
 from cova_tpu_torch.models.blobnet import load_meta_npz
+from cova_tpu_torch.pipeline.ranges import RangePlan
 
 # The suite runs one test worker per core: keep torch to one thread each.
 torch.set_num_threads(1)
@@ -130,18 +131,18 @@ def test_ranges_and_chunks_equal_the_jax_demuxers(video):
     cfg = bench.bench_cfg(meta)
     demux = Mp4Demuxer(str(video))
     b = bench.Bench(str(video), demux, cfg, None, torch.device("cpu"), 4,
-                    bench.make_ranges(demux, 8, cfg.video.timestep), None)
+                    RangePlan.build([demux], cfg), None)
     jd = JaxMp4Demuxer(str(video))
     bounds, wmax = _jax_ranges(jd, 8, 4)
-    assert b.ranges.bounds == bounds and b.ranges.wmax == wmax
-    assert sum(b.ranges.windows(off, 128) for off in range(0, max(wmax), 128)) == sum(wmax)
+    assert [(s, c) for _, s, c in b.plan.bounds] == bounds and b.plan.windows == wmax
+    assert sum(sum(b.plan.chunk_windows(ci)) for ci in range(b.plan.n_chunks)) == sum(wmax)
     assert sum(wmax) == sum(max(0, c - 3) for _, c in bounds) == 7 * 247 + 47
     bufs = [bench.fresh_chunk(b, 8) for _ in (0, 1)]
     prev_n = [[0] * 8, [0] * 8]
     n = 0
     for ci, off in enumerate(range(0, max(wmax), 128)):
         got = bufs[ci & 1].numpy()
-        bench.fill_chunk(b, got, prev_n[ci & 1], off, b.ranges)
+        bench.fill_chunk(b, got, prev_n[ci & 1], ci, b.plan)
         assert np.array_equal(got, _jax_chunk(jd, bounds, wmax, off, _jax_cfg(cfg), 8)), ci
         n += 1
     assert n == 2
@@ -189,15 +190,15 @@ def test_every_chunks_masks_and_the_dead_tracks_equal_jax(clip, small, jax_run):
     jax_cfg, ref_packed, ref_dead, windows = jax_run
     b = bench.setup(clip, "cpu")
     assert _jax_cfg(b.cfg) == jax_cfg
-    assert b.ranges.bounds == [(0, 65), (65, 65)]
+    assert b.plan.bounds == [(0, 0, 65), (0, 65, 65)]
     prev_n = [0] * R
     chunk = bench.fresh_chunk(b, R)
-    offs = list(range(0, max(b.ranges.wmax), F))
-    assert len(offs) == len(ref_packed) == 4
-    for off, ref in zip(offs, ref_packed):
-        bench.fill_chunk(b, chunk.numpy(), prev_n, off, b.ranges)
+    offs = list(range(0, max(b.plan.windows), F))
+    assert len(offs) == len(ref_packed) == b.plan.n_chunks == 4
+    for ci, ref in enumerate(ref_packed):
+        bench.fill_chunk(b, chunk.numpy(), prev_n, ci, b.plan)
         got = b.stage.run_chunk_masks(bench.upload(b, chunk)).numpy()
-        assert np.array_equal(got, ref), off
+        assert np.array_equal(got, ref), offs[ci]
 
     dead = []
     processed, elapsed, stages = bench.one_pass(b, on_dead=lambda ri, rec: dead.append((ri, rec)))

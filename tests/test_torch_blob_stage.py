@@ -16,6 +16,7 @@ chunk of both benchmark clips against its forward with the plain tails;
 four launches a chunk, none in train mode; an eval forward that asks for
 a gradient raises."""
 
+import dataclasses
 import functools
 import pathlib
 
@@ -246,9 +247,10 @@ def _first_chunk_windows(name, device):
     with its weights' input contract."""
     from cova_tpu_torch import bench
     from cova_tpu_torch.codec import Mp4Demuxer
-    from cova_tpu_torch.config import CovaConfig
+    from cova_tpu_torch.config import CovaConfig, ParallelConfig
     from cova_tpu_torch.examples.profile_device import with_weights_contract
     from cova_tpu_torch.ops.preprocess import metapreprocess, unpack_wire16
+    from cova_tpu_torch.pipeline.ranges import RangePlan
 
     clip, weights = (REPO / p for p in BENCH_CLIPS[name])
     model, _, meta = tbn.load_artifact(weights, device)
@@ -256,10 +258,11 @@ def _first_chunk_windows(name, device):
     r, t = 4, cfg.video.timestep
     demux = Mp4Demuxer(str(clip))
     try:
-        b = bench.Bench(str(clip), demux, cfg, model, torch.device("cpu"), 8,
-                        bench.make_ranges(demux, r, t), None)
+        plan = RangePlan.build(
+            [demux], dataclasses.replace(cfg, parallel=ParallelConfig(num_ranges=r)))
+        b = bench.Bench(str(clip), demux, cfg, model, torch.device("cpu"), 8, plan, None)
         chunk = bench.fresh_chunk(b, r)
-        bench.fill_chunk(b, chunk.numpy(), [0] * r, 0, b.ranges)
+        bench.fill_chunk(b, chunk.numpy(), [0] * r, 0, b.plan)
     finally:
         demux.close()
     c = cfg.compressed
