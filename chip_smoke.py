@@ -3,23 +3,24 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py [--kernels-only | --k7-split | --pixdec-only]
+    python3 chip_smoke.py [--kernels-only | --k7-split | --pixdec-only | --only NAME]
 
 Phases (--kernels-only stops after phase 2; --k7-split runs phases 0-1
 and then only K7's four timed inputs, for timing two checkouts in turns
-in one call; --pixdec-only runs phases 0-1 and 15a-c; --msda-only runs
-phases 0-1 and K11's part of phase 2); the seconds each took are printed
-as it ends:
+in one call; --pixdec-only runs phases 0-1 and 15a-c; --only NAME runs
+phases 0-1 and the part of phase 2 of one kernel, by its KERNELS name,
+e.g. ms_deform_attn or blob_up); the seconds each took are printed as it
+ends:
   0  the card, the software versions, and the NVDEC probe (recorded, not
      built: is libnvcuvid visible to ldconfig or in the driver's library
      directories, does the toolkit ship nvcuvid.h);
   1  builds every CUDA kernel of the port from the sources in the
      checkout (the CC, NMS, MOG2, SORT, the three H.264 reconstruction
-     kernels and K4, one nvcc each, all at once), and the port's codec
-     library (with its syntax decoder, csrc/rec); prints what ptxas says of each
-     kernel (registers, spills) and, from `cuobjdump -sass`, the MOG2
-     and SORT kernels' instruction counts and atomics (the listing goes
-     beside the built library);
+     kernels, K4, K11 and K12, one nvcc each, all at once), and the
+     port's codec library (with its syntax decoder, csrc/rec); prints
+     what ptxas says of each kernel (registers, spills) and, from
+     `cuobjdump -sass`, the MOG2 and SORT kernels' instruction counts
+     and atomics (the listing goes beside the built library);
   2  holds each kernel against its plain PyTorch version on the card,
      every case three times: CC labels, the four NMS outputs, the MOG2
      foreground and state, and the SORT scan's (K7) state and outputs
@@ -32,10 +33,14 @@ as it ends:
      (the BlobNet encoder stage's tail) on the four stages of the 68x120
      and 45x80 grids at B*T = 2048, within 1e-6 of the largest output of
      its plain version (cuDNN's BatchNorm and cuBLAS's K = 4 products
-     round in other orders); K11 (RT-DETR's deformable attention core) on
-     the six decoder layers' inputs of one frame of the port's RT-DETR-R50
-     on its seeded initialisation and on seeded inputs at the published
-     shapes, within 1e-6 of the largest output of its plain version; the
+     round in other orders); K12 (a BlobNet decoder block) on the four
+     blocks of both grids at 512 windows, within 1e-6 of the largest
+     output of its plain version, timed also against the cuDNN sequence
+     it replaces, with its share of the FLOP bound; K11 (RT-DETR's
+     deformable attention core) on the six decoder layers' inputs of one
+     frame of the port's RT-DETR-R50 on its seeded initialisation and on
+     seeded inputs at the published shapes, within 1e-6 of the largest
+     output of its plain version; the
      MOG2 kernel's short division against `__fdiv_rn` over 7 * 2^26
      seeded pairs and the edges; times each kernel at the main path's
      shapes as device time per launch (a CUDA graph of 100 launches, for
@@ -57,8 +62,7 @@ as it ends:
   5  the host-tracking masks step (`run_chunk_masks`) timed at R=8,
      F=128 on 45x80 and 68x120, and a sub-chunk against the CPU; the
      split of a 68x120 chunk (R=4): preprocessing, the encoder's
-     convolutions, K4, the transposed convolutions, the decoder's other
-     ops, the head, the threshold and pack;
+     convolutions, K4, K12 (the decoder), the threshold and pack;
   6  the default `CovaPipeline` (host_tracking=True) on the same clip,
      its CSVs byte-identical to the port's run on the CPU;
   7  the pixel-domain oracle: full-width YOLOv4-608 (80 classes) on
@@ -187,6 +191,10 @@ KERNELS = {
     # BatchNorm, the pool and pad, PointWiseTemporal); no one torch op
     # computes that tail, so library_ms is null.
     "blob_stage": ("cuda", "cova_tpu_torch/csrc/blob_stage.cu", "cova_tpu/models/blobnet.py:152"),
+    # No Pallas original: XLA's ConvTranspose and fusions of a BlobNet
+    # decoder block; its one-call library counterpart is the cuDNN
+    # sequence BlobNet ran before it (library_ms).
+    "blob_up": ("cuda", "cova_tpu_torch/csrc/blob_up.cu", "cova_tpu/models/blobnet.py:168"),
     # No TPU original: the JAX package has no transformer detector; K11 is
     # the deformable attention core of the port's RT-DETR oracle, which no
     # one torch op computes, so library_ms is null.
@@ -376,6 +384,13 @@ K4_REL_TOL = 1e-6
 # each of the two mixes' product and three fused multiply-adds (7) and
 # relu, the residual add and the last relu.
 K4_OPS_PER_CELL = 4 * 4 + 3 + 2 * 8 + 2
+# K12 on the decoder blocks of both grids at the benchmark's chunk, with
+# the weights each grid's pipeline loads, held to its plain version within
+# K12_REL_TOL of the block's largest output (the transposed convolution
+# sums its 4 * Cin products in another order than cuDNN's).
+K12_WINDOWS = 4 * 128
+K12_GRIDS = (("blobnet_demo1080.npz", (68, 120)), ("blobnet_synth.npz", (45, 80)))
+K12_REL_TOL = 1e-6
 # K11 against its plain version: the softmax and the sum over the 12
 # samples round in other orders; the sampling coordinates are the same.
 K11_REL_TOL = 1e-6
@@ -602,6 +617,86 @@ def phase2_blob_stage(floor: float) -> dict:
     return {"name": "blob_stage", "route": route, "source": source, "replaces": replaces,
             "max_abs_err": max_err, "library_ms": None,
             **timed[f"stage 1 68x120 C=16 B*T={b * 4} channels-last"]}
+
+
+def phase2_blob_up(floor: float) -> dict:
+    """K12 against its plain version on the card at the main path's
+    shapes: every decoder block of the 68x120 and 45x80 grids at
+    K12_WINDOWS windows, with the grid's weights; x the previous block's
+    output (seeded, either sign), the skip the t = 0 slice of a seeded
+    (windows, 4, C, h, w) stage output, read in place; within K12_REL_TOL
+    of the largest output, REPEATS times. Device ms a launch (graph), the
+    wrapper's call, the plain version, the cuDNN sequence it replaces as
+    device ms a launch (`library_ms`: the plain version in a graph), and
+    the bound by operations: 2 * 4 * Cin * Cout FLOPs an output kept (the
+    crop's), the head's 2 * 16 a pixel on the last block, at OPS_PER_S.
+    Returns the JSON record of block 4 at 68x120."""
+    import torch
+
+    from cova_tpu_torch.models.blobnet import load_artifact
+    from cova_tpu_torch.ops.cuda.blob_up import blob_up, blob_up_plain
+    from cova_tpu_torch.pipeline.compressed import exact_float32
+
+    exact_float32("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b = K12_WINDOWS
+    timed, max_err = {}, 0.0
+    for weights, (h, w) in K12_GRIDS:
+        model = load_artifact(REPO / "artifacts" / weights, "cuda")[0]
+        planes = [(h, w)]
+        for _ in model.config.encoder_channels:
+            planes.append((planes[-1][0] // 2 + planes[-1][0] % 2,
+                           planes[-1][1] // 2 + planes[-1][1] % 2))
+        skips = list(reversed(model.config.encoder_channels))
+        for i, convt in enumerate(model.dec_convt):
+            bn = model.dec_bn[i] if i < len(model.dec_bn) else None
+            head = model.head if bn is None else None
+            ih, iw = planes[len(planes) - 1 - i]
+            target = planes[len(planes) - 2 - i]
+            c2 = skips[i] if i else 0
+            c1 = convt.in_channels - c2
+            if i:
+                x = torch.randn(b, c1, ih, iw, device="cuda", generator=gen)
+                skip = torch.rand(b, 4, c2, ih, iw, device="cuda", generator=gen)[:, 0]
+            else:
+                x = torch.rand(b, 4, c1, ih, iw, device="cuda", generator=gen)[:, 0]
+                skip = None
+            cout = convt.out_channels
+            label = (f"block {i + 1} {h}x{w} {c1}+{c2}->{cout} {ih}x{iw}->{target[0]}x{target[1]}"
+                     f" B={b}")
+            with torch.no_grad():
+                ref = blob_up_plain(x, skip, convt, bn, head, target)
+                scale = float(ref.abs().max())
+                for _ in range(REPEATS):
+                    got = blob_up(x, skip, convt, bn, head, target)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    if got.shape != ref.shape or not got.is_contiguous() or \
+                            err > K12_REL_TOL * scale:
+                        raise AssertionError(f"{label}: K12 {tuple(got.shape)} off the plain "
+                                             f"version by {err} (largest output {scale})")
+                    max_err = max(max_err, err)
+                kept = b * target[0] * target[1]
+                flops = 2 * kept * cout * 4 * (c1 + c2) + (2 * kept * cout if head else 0)
+                nbytes = 4 * (x.numel() + (skip.numel() if i else 0) + ref.numel()
+                              + convt.weight.numel())
+                timed[label], text = _timing(
+                    lambda: blob_up(x, skip, convt, bn, head, target),
+                    lambda: blob_up_plain(x, skip, convt, bn, head, target),
+                    nbytes, flops, floor)
+                library = graph_ms(lambda: blob_up_plain(x, skip, convt, bn, head, target))
+                timed[label]["library_ms"] = library
+            rec = timed[label]
+            log(f"[2] blob_up {label}: within {err / scale:.3g} of the largest output "
+                f"({scale:.4g}) of plain, {REPEATS} times; {text}; the cuDNN sequence "
+                f"{library:.5f} ms a launch (graph), K12 {library / rec['device_ms']:.2f}x "
+                f"faster; {flops / 1e9:.3f} GFLOP, {rec['bound_ms'] / rec['device_ms']:.2%} of "
+                f"the FLOP bound ({rec['bound_ms'] / library:.2%} for cuDNN's)")
+            del x, skip, ref, got
+    route, source, replaces = KERNELS["blob_up"]
+    return {"name": "blob_up", "route": route, "source": source, "replaces": replaces,
+            "max_abs_err": max_err,
+            **timed[f"block 4 68x120 16+16->16 34x60->68x120 B={b}"]}
 
 
 def _msda_cases() -> tuple:
@@ -1583,23 +1678,21 @@ def phase4_pipeline(mp4, samples, tmp) -> tuple:
 def _masks_split(model, cfg, md, runs: int = 10) -> dict:
     """Device ms of each part of the masks step (compressed_masks_step) on
     the device chunk `md`, read from the step itself: CUDA events recorded
-    on the stream at the edges of the model's own submodules (the
-    encoder's convolutions, the decoder's transposed convolutions, cuDNN's
-    dgrad engine, the head's 1x1 convolution) and of each K4 launch
-    (BlobNet's `blob_stage`, wrapped for the runs). The time between two
-    events goes to the part it lies in: preprocessing (unpack_wire16,
-    metapreprocess) before the first convolution, the decoder's relu,
-    crop, BatchNorm and concatenation around the transposed convolutions,
-    the sigmoid, threshold and pack after the head. Medians over `runs`
-    steps after a warm-up; "whole step" is the median from the first
-    event to the last."""
+    on the stream at the edges of the model's own encoder convolutions and
+    of each K4 and K12 launch (BlobNet's `blob_stage` and `blob_up`,
+    wrapped for the runs). The time between two events goes to the part it
+    lies in: preprocessing (unpack_wire16, metapreprocess) before the
+    first convolution, "between" from a K4 launch to the next convolution
+    or the decoder, the threshold and pack after the last K12 launch.
+    Medians over `runs` steps after a warm-up; "whole step" is the median
+    from the first event to the last."""
     import torch
 
     from cova_tpu_torch.models import blobnet
     from cova_tpu_torch.pipeline.compressed import compressed_masks_step
 
-    parts = ("preprocess", "encoder convs", "K4", "transposed convs (dgrad)",
-             "decoder relu/crop/BN/cat", "head", "sigmoid, threshold and pack")
+    parts = ("preprocess", "encoder convs", "K4", "between", "K12 (the decoder)",
+             "threshold and pack")
     marks = []  # (the part that starts here, event)
 
     def mark(part):
@@ -1611,19 +1704,19 @@ def _masks_split(model, cfg, md, runs: int = 10) -> dict:
         return (module.register_forward_pre_hook(lambda *_: mark(before)),
                 module.register_forward_hook(lambda *_: mark(after)))
 
-    handles = [h for conv in model.enc_conv for h in hooks(conv, "encoder convs", "K4")]
-    handles += [h for convt in model.dec_convt
-                for h in hooks(convt, "transposed convs (dgrad)", "decoder relu/crop/BN/cat")]
-    handles += hooks(model.head, "head", "sigmoid, threshold and pack")
-    k4 = blobnet.blob_stage
+    handles = [h for conv in model.enc_conv for h in hooks(conv, "encoder convs", "between")]
+    k4, k12 = blobnet.blob_stage, blobnet.blob_up
 
-    def timed_k4(*args):
-        mark("K4")
-        out = k4(*args)
-        mark("decoder relu/crop/BN/cat")
-        return out
+    def timed(kernel, part, after):
+        def run(*args):
+            mark(part)
+            out = kernel(*args)
+            mark(after)
+            return out
+        return run
 
-    blobnet.blob_stage = timed_k4
+    blobnet.blob_stage = timed(k4, "K4", "between")
+    blobnet.blob_up = timed(k12, "K12 (the decoder)", "threshold and pack")
     runs_ms = []
     try:
         for i in range(runs + 1):
@@ -1640,7 +1733,7 @@ def _masks_split(model, cfg, md, runs: int = 10) -> dict:
             got["whole step"] = marks[0][1].elapsed_time(marks[-1][1])
             runs_ms.append(got)
     finally:
-        blobnet.blob_stage = k4
+        blobnet.blob_stage, blobnet.blob_up = k4, k12
         for h in handles:
             h.remove()
     return {k: statistics.median(r[k] for r in runs_ms) for k in runs_ms[0]}
@@ -2660,6 +2753,7 @@ BENCH_DEVICE_REPS = 4
 def _launches(reset: bool = False) -> dict:
     """The kernels' launch counts; `reset` sets them to 0 after."""
     from cova_tpu_torch.ops.cuda.blob_stage import blob_stage
+    from cova_tpu_torch.ops.cuda.blob_up import blob_up
     from cova_tpu_torch.ops.cuda.cc_kernel import connected_components
     from cova_tpu_torch.ops.cuda.mog2_kernel import mog2_chunk
     from cova_tpu_torch.ops.cuda.nms_kernel import nms
@@ -2670,7 +2764,7 @@ def _launches(reset: bool = False) -> dict:
     wrappers = {"cc_label": connected_components, "nms": nms, "mog2": mog2_chunk,
                 "sort_scan": sort_scan, "h264_inter": K.h264_inter,
                 "h264_intra": K.h264_intra, "h264_deblock": K.h264_deblock,
-                "blob_stage": blob_stage}
+                "blob_stage": blob_stage, "blob_up": blob_up}
     counts = {name: w.launches for name, w in wrappers.items()}
     if reset:
         for w in wrappers.values():
@@ -2696,7 +2790,7 @@ def phase13_bench() -> None:
     """cova_tpu_torch.bench on the card on both committed renders: the
     first chunk's packed masks against the port on the CPU, then the
     passes (one JSON line each render); platform cuda, frames a pass
-    equal to the demuxer's windows, K4 the only kernel launched."""
+    equal to the demuxer's windows, K4 and K12 the only kernels launched."""
     import os
 
     import numpy as np
@@ -2734,9 +2828,11 @@ def phase13_bench() -> None:
         if out["platform"] != "cuda" or out["frames_per_pass"] != windows:
             raise AssertionError(f"{video.name}: platform {out['platform']}, frames a pass "
                                  f"{out['frames_per_pass']} (the demuxer's windows: {windows})")
-        others = {k: n for k, n in launches.items() if k != "blob_stage"}
-        if any(others.values()) or not launches["blob_stage"]:
-            raise AssertionError(f"the bench launched {launches}: its path runs K4 alone")
+        others = {k: n for k, n in launches.items() if k not in ("blob_stage", "blob_up")}
+        if any(others.values()) or launches["blob_up"] != launches["blob_stage"] or \
+                not launches["blob_stage"]:
+            raise AssertionError(f"the bench launched {launches}: its path runs K4 and K12 "
+                                 "alone, as often")
         log(f"[13] {video.name}: compressed_domain_fps {out['value']} (CPU time), wall_fps "
             f"{out['wall_fps']}, device_fps {out['device_fps']}, frames a pass {windows} "
             f"(the demuxer's windows), kernel launches {launches}")
@@ -2746,8 +2842,8 @@ def phase14_1080p(tmp: pathlib.Path) -> int:
     """reproduce_1080p's CovaPipeline configuration (4 ranges,
     blobnet_demo1080.npz, cc 7, mask 0.6, the tracker's defaults) with
     last="select" on the whole 1080p render, on the card and on the CPU:
-    the four CSVs byte-identical; K4 the only kernel, four launches a
-    chunk. Returns K4's launches."""
+    the four CSVs byte-identical; K4 and K12 the only kernels, four
+    launches each a chunk. Returns their launches."""
     from cova_tpu_torch.codec import Mp4Demuxer
     from cova_tpu_torch.examples.reproduce_1080p import WEIGHTS_1080P, operating_point
     from cova_tpu_torch.models.blobnet import load_artifact
@@ -2760,13 +2856,13 @@ def phase14_1080p(tmp: pathlib.Path) -> int:
     cpu, _, _ = _run_pipeline("14", SYNTH_RENDER_1080P, tmp / "out14cpu", cfg, sd, "cpu",
                               samples)
     _same_csvs("14", tmp / "out14", tmp / "out14cpu", res, cpu)
-    others = {k: n for k, n in launches.items() if k != "blob_stage"}
-    if any(others.values()) or launches["blob_stage"] != 4 * n_chunks:
+    others = {k: n for k, n in launches.items() if k not in ("blob_stage", "blob_up")}
+    if any(others.values()) or not launches["blob_stage"] == launches["blob_up"] == 4 * n_chunks:
         raise AssertionError(f"the 1080p pipeline launched {launches} for {n_chunks} chunks: "
-                             "its path runs K4 alone, four launches a chunk")
+                             "its path runs K4 and K12 alone, four launches each a chunk")
     log(f"[14] the four CSVs of the card run equal the CPU run's, byte for byte, over all "
         f"{samples} frames; kernel launches {launches}")
-    return launches["blob_stage"]
+    return launches
 
 
 # --- phase 15: the pixel decoder (K8-K10) ------------------------------------
@@ -3364,6 +3460,13 @@ def phase15_pixdec(tmp: pathlib.Path, floor) -> dict:
     return records
 
 
+# Phase 2's check and times of each kernel, by its KERNELS name, in the
+# order the whole smoke runs them.
+PHASE2 = {"cc_label": phase2_cc, "nms": phase2_nms, "mog2": phase2_mog2,
+          "sort_scan": phase2_sort, "blob_stage": phase2_blob_stage, "blob_up": phase2_blob_up,
+          "ms_deform_attn": phase2_msda}
+
+
 def _kernel_lines(records) -> list:
     return [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -3382,9 +3485,9 @@ def main(argv=None) -> int:
                     help="phases 0-1 and 15 (the pixel decoder's kernels against their "
                          "plain versions, the renders against libavcodec's hashes, the "
                          "last=full run), and stop, with no ok line")
-    ap.add_argument("--msda-only", action="store_true",
-                    help="phases 0-1, then K11 (phase 2's ms_deform_attn: the check against "
-                         "its plain version and its times), and stop, with no ok line")
+    ap.add_argument("--only", choices=sorted(PHASE2), metavar="NAME",
+                    help="phases 0-1, then phase 2's check and times of the one kernel NAME "
+                         f"({', '.join(PHASE2)}), and stop, with no ok line")
     ap.add_argument("--k7-split", action="store_true",
                     help="phases 0-1, then K7 alone on its four timed inputs (no "
                          "check against the plain version), and stop, with no ok line: "
@@ -3423,10 +3526,11 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     floor = launch_floor_ms()
-    if args.msda_only:
-        rec = phase2_msda(floor)
+    if args.only:
+        rec = PHASE2[args.only](floor)
+        rec.setdefault("launches", None)
         lap(2)
-        print(json.dumps({"kernels": _kernel_lines({"ms_deform_attn": rec})}))
+        print(json.dumps({"kernels": _kernel_lines({args.only: rec})}))
         print(smi, flush=True)
         return 0
     if args.pixdec_only:
@@ -3436,9 +3540,7 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": _kernel_lines(recs)}))
         print(smi, flush=True)
         return 0
-    records = {"cc_label": phase2_cc(floor), "nms": phase2_nms(floor),
-               "mog2": phase2_mog2(floor), "sort_scan": phase2_sort(floor),
-               "blob_stage": phase2_blob_stage(floor), "ms_deform_attn": phase2_msda(floor)}
+    records = {name: check(floor) for name, check in PHASE2.items()}
     lap(2)
     if args.kernels_only:
         for rec in records.values():
@@ -3479,7 +3581,9 @@ def main(argv=None) -> int:
         lap(12)
         phase13_bench()
         lap(13)
-        records["blob_stage"]["launches"] = phase14_1080p(tmp)
+        launches14 = phase14_1080p(tmp)
+        for name in ("blob_stage", "blob_up"):
+            records[name]["launches"] = launches14[name]
         lap(14)
         records.update(phase15_pixdec(tmp, floor))
         records["nms"]["launches_15d"] = phase15d_oracle(tmp)

@@ -11,7 +11,9 @@ PyTorch (port of cova_tpu/models/blobnet.py).
   4 ConvTranspose(4x4, stride 2, VALID) upsample blocks (channels
   [64, 32, 16, 16]), each preceded by relu and dropout and followed by a
   center crop/pad to the skip shape, BatchNorm and skip concat (except
-  the last), then a 1x1 conv + sigmoid in float32.
+  the last), then a 1x1 conv + sigmoid in float32; in eval mode on the
+  card each block, the head and sigmoid in the last, is one launch of
+  K12 (ops/cuda/blob_up.py), which reads the skip in place.
 
 Public layout is the JAX package's: input (B, T, H, W, C) float, output
 (B, H, W) probabilities. Inside, tensors are NCHW with T folded into the
@@ -48,10 +50,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from cova_tpu_torch import trace
+from cova_tpu_torch.ops.batch_norm import BN_MOMENTUM, batch_norm  # noqa: F401
 from cova_tpu_torch.ops.cuda.blob_stage import blob_stage, blob_stage_plain
+from cova_tpu_torch.ops.cuda.blob_up import blob_up, blob_up_plain
 
 BN_EPS = 1e-5  # Flax BatchNorm default, same as torch's
-BN_MOMENTUM = 0.99  # Flax's: running = 0.99 * running + 0.01 * batch
 # Flax's lecun_normal draws a normal truncated at +-2 standard deviations
 # and scales it so the variance stays 1/fan_in: the truncated unit
 # normal's standard deviation is 0.8796...
@@ -98,60 +101,6 @@ class PointWiseTemporal(nn.Module):
             if self.training and self.dropout > 0.0:
                 h = _dropout(h, self.dropout, generator)
         return F.relu(h + x)
-
-
-def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, process_group=None) -> torch.Tensor:
-    """BatchNorm over (N, C, H, W). Eval mode: the running statistics.
-    Train mode, as Flax: the batch mean and biased variance
-    (E[x^2] - E[x]^2, clipped at 0), y = (x - mean) * (scale *
-    rsqrt(var + eps)) + bias, and the running statistics updated as
-    0.99 * running + 0.01 * batch without gradient.
-
-    With a process group (data-parallel training, each rank holding a
-    shard of the batch), the batch is the global one, as in a Flax step
-    jitted over a sharded batch: the per-channel sums of x and x^2 and
-    the count are all-reduced with autograd, so every rank normalises
-    with, and stores, the global mean and variance. The all-reduce's
-    backward sums the incoming gradients over the ranks: each rank's loss
-    must enter the graph as its share of the global loss."""
-    if not bn.training:
-        return bn(x)
-    axes = (0, 2, 3)
-    if process_group is None:
-        mean = x.mean(dim=axes)
-        ex2 = (x * x).mean(dim=axes)
-    else:
-        c = x.shape[1]
-        count = x.new_full((1,), x.numel() // c)
-        from torch.distributed.nn.functional import all_reduce
-
-        sums = all_reduce(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes), count]),
-                          group=process_group)
-        mean, ex2 = sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
-    var = torch.clamp(ex2 - mean * mean, min=0.0)
-    with torch.no_grad():
-        bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
-        bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
-
-
-def _crop_or_pad_center(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
-    """Center crop/pad the last two dims to (th, tw); the extra element
-    goes first."""
-    h, w = x.shape[-2:]
-    dh, dw = h - th, w - tw
-    if dh > 0:
-        x = x[..., dh // 2 + dh % 2 : h - dh // 2, :]
-    elif dh < 0:
-        d = -dh
-        x = F.pad(x, (0, 0, d // 2 + d % 2, d // 2))
-    if dw > 0:
-        x = x[..., dw // 2 + dw % 2 : w - dw // 2]
-    elif dw < 0:
-        d = -dw
-        x = F.pad(x, (d // 2 + d % 2, d // 2))
-    return x
 
 
 class BlobNet(nn.Module):
@@ -213,14 +162,20 @@ class BlobNet(nn.Module):
         """x: (B, T, H, W, C) float -> (B, H, W) float32 probabilities.
         In train mode with dropout, `generator` (on x's device) draws the
         masks; with `process_group`, BatchNorm's batch statistics are
-        those of the group's global batch (`_batch_norm`).
+        those of the group's global batch (`batch_norm`).
 
         Each encoder stage's tail after its convolution runs as one launch
         of K4 (ops/cuda/blob_stage.py) in eval mode on CUDA, which raises
         on what the kernel does not take (a gradient asked for: run the
         eval forward under torch.no_grad()); in train mode and on the CPU
-        as `blob_stage_plain`. The counters `blobnet.stages` and
-        `blobnet.stages_fused` count the stages run and those sent to K4."""
+        as `blob_stage_plain`. Each decoder block likewise runs as one
+        launch of K12 (ops/cuda/blob_up.py: the transposed convolution at
+        the kept positions, then BatchNorm, or in the last block, the one
+        without a BatchNorm, the head and the sigmoid), or as
+        `blob_up_plain`. The counters `blobnet.stages` and
+        `blobnet.stages_fused` count the stages run and those sent to K4,
+        `blobnet.up_blocks` and `blobnet.up_fused` the decoder blocks run
+        and those sent to K12."""
         b, t, h0, w0, c = x.shape
         drop = self.training and self.config.dropout > 0.0
         x = x.to(torch.float32).permute(0, 1, 4, 2, 3)  # (B, T, C, H, W)
@@ -229,7 +184,7 @@ class BlobNet(nn.Module):
             y = conv(x.reshape((b * t,) + x.shape[2:]))
             trace.count("blobnet.stages")
             if self.training or not y.is_cuda:
-                norm = functools.partial(_batch_norm, bn, process_group=process_group)
+                norm = functools.partial(batch_norm, bn, process_group=process_group)
                 x = blob_stage_plain(y, norm, pwt, b, generator)
             else:
                 trace.count("blobnet.stages_fused")
@@ -239,17 +194,21 @@ class BlobNet(nn.Module):
 
         feats = [s[:, 0] for s in reversed(skips)]  # (B, C, H, W) each
         targets = [f.shape[-2:] for f in feats[1:]] + [(h0, w0)]
-        x = feats[0]
+        dropout = (lambda t, g: _dropout(t, self.config.dropout, g)) if drop else None
+        x, skip = feats[0], None
         for i, convt in enumerate(self.dec_convt):
-            x = F.relu(x)
-            if drop:
-                x = _dropout(x, self.config.dropout, generator)
-            x = convt(x)
-            x = _crop_or_pad_center(x, *targets[i])
-            if i < len(self.dec_bn):
-                x = torch.cat([_batch_norm(self.dec_bn[i], x, process_group), feats[i + 1]],
-                              dim=1)
-        return torch.sigmoid(self.head(x).to(torch.float32))[:, 0]
+            # The last block, the one without a BatchNorm, ends in the head.
+            bn = self.dec_bn[i] if i < len(self.dec_bn) else None
+            head = self.head if bn is None else None
+            trace.count("blobnet.up_blocks")
+            if self.training or not x.is_cuda:
+                x = blob_up_plain(x, skip, convt, bn, head, targets[i], dropout, generator,
+                                  process_group)
+            else:
+                trace.count("blobnet.up_fused")
+                x = blob_up(x, skip, convt, bn, head, targets[i])
+            skip = None if bn is None else feats[i + 1]
+        return x
 
 
 def create_blobnet(generator: torch.Generator, config: BlobNetConfig = BlobNetConfig(),

@@ -84,7 +84,7 @@ def _conv_output(batch, c, h, w, gen, channels_last, device="cpu", offset=False)
 
 def _former_tail(y, bn, pwt, batch, generator, process_group=None):
     """BlobNet.forward's encoder tail as it stood inline before K4."""
-    y = tbn._batch_norm(bn, F.relu(y), process_group)
+    y = tbn.batch_norm(bn, F.relu(y), process_group)
     h, w = y.shape[-2:]
     if h >= 2 and w >= 2:
         z = F.max_pool2d(y, 2)
@@ -105,7 +105,7 @@ def test_plain_equals_former_sequence(grid, stage, train):
     for m in (bn, pwt, bn_ref, pwt_ref):
         m.train(train)
     y = _conv_output(2, c, h, w, gen, channels_last=stage == 0)
-    norm = functools.partial(tbn._batch_norm, bn, process_group=None)
+    norm = functools.partial(tbn.batch_norm, bn, process_group=None)
     with torch.no_grad():
         got = blob_stage_plain(y, norm, pwt, 2, torch.Generator().manual_seed(7))
         ref = _former_tail(y, bn_ref, pwt_ref, 2, torch.Generator().manual_seed(7))

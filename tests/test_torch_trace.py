@@ -39,11 +39,12 @@ SPANS = {
     "cova.pixdec.syntax", "cova.pixdec.upload", "cova.pixdec.launch", "cova.pixdec.copy_out",
     "cova.oracle.wait", "cova.oracle", "cova.oracle.pre", "cova.oracle.net", "cova.oracle.post",
 }
-# The CPU run's counters: its BlobNet stages run the plain tail, so
-# `blobnet.stages_fused` (a K4 launch) never appears.
+# The CPU run's counters: its BlobNet stages and decoder blocks run the
+# plain versions, so `blobnet.stages_fused` (a K4 launch) and
+# `blobnet.up_fused` (a K12 launch) never appear.
 COUNTERS = {"entdec.frames", "masks.chunks", "pixdec.pictures", "pixdec.uploads",
             "pixdec.upload_bytes", "pixdec.copy_out_bytes", "oracle.frames",
-            "oracle.detections", "blobnet.stages"}
+            "oracle.detections", "blobnet.stages", "blobnet.up_blocks"}
 # StageTimers field -> the spans whose seconds it sums (pixel_decode is
 # the decode's wall less the oracle's).
 TIMERS = {"entropy_decode": "cova.entdec", "device_dispatch": "cova.masks",
@@ -181,6 +182,7 @@ def test_pipeline_records_every_span_and_counter(traced):
     assert counts["pixdec.pictures"] == res.decoded_dependency + res.decoded_inference
     assert counts["masks.chunks"] == names["cova.masks"]
     assert counts["blobnet.stages"] == 4 * counts["masks.chunks"]
+    assert counts["blobnet.up_blocks"] == 4 * counts["masks.chunks"]
     # Syntax.picture's uploads: 11 a picture with nonzero levels, else 9.
     assert 9 * counts["pixdec.pictures"] <= counts["pixdec.uploads"] <= \
         11 * counts["pixdec.pictures"]
